@@ -13,7 +13,19 @@ import numpy as np
 import torch
 
 from ccx_torch.common.resources import NUM_RESOURCES, Resource
-from ccx_torch.model.tensor_model import TensorClusterModel, build_model
+from ccx_torch.model.tensor_model import (
+    TensorClusterModel,
+    build_model,
+    model_arrays,
+    model_from_arrays,
+)
+
+#: fields with a partition axis: first, or (the loads) second
+_PARTITION_FIELDS = (
+    "assignment", "leader_slot", "replica_disk", "partition_valid",
+    "partition_topic", "partition_immovable",
+)
+_PARTITION_LOAD_FIELDS = ("leader_load", "follower_load")
 
 
 def small_deterministic(device: str | torch.device | None = None) -> TensorClusterModel:
@@ -154,6 +166,19 @@ def random_cluster(
     """A seeded random cluster with deliberate imbalance (``skew`` of the
     partitions put their first replica on the first quarter of brokers)."""
     return build_model(**random_cluster_arrays(spec), device=device)
+
+
+def shuffled_partitions(m: TensorClusterModel, seed: int) -> TensorClusterModel:
+    """The same cluster with its partition axis (padding included) in a
+    seeded random order, on the model's device. A fixture's partitions come
+    sorted by topic; a snapshot's need not."""
+    perm = np.random.default_rng(seed).permutation(m.P)
+    arrays = model_arrays(m)
+    for name in _PARTITION_FIELDS:
+        arrays[name] = arrays[name][perm]
+    for name in _PARTITION_LOAD_FIELDS:
+        arrays[name] = arrays[name][:, perm]
+    return model_from_arrays(arrays, m.num_topics, m.num_racks, m.device)
 
 
 def bench_spec(name: str) -> RandomClusterSpec:

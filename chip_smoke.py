@@ -8,12 +8,16 @@ Phases, one JSON line each:
 2. build — the hand-written CUDA kernels, compiled with nvcc for sm_90a from
    the sources in this checkout, with their build time;
 3. kernel checks — each kernel against its plain PyTorch version on the
-   card: B5 (1000 brokers / 100k partitions), a B4-style JBOD fixture
-   (4 disks per broker), a dead-broker fixture (B3) and a 4000-broker
-   fixture that takes the kernel's global-atomics path (B > 2048). Integers
-   must match exactly, floats within rtol 1e-5 / atol 1e-3 (float sums are
-   taken with atomics in a run-dependent order). Times at B5 with CUDA
-   events;
+   card: B5 (1000 brokers / 100k partitions), B5 with its partitions in a
+   seeded random order (which must also equal B5 on every integer field),
+   a B4-style JBOD fixture (4 disks per broker), a dead-broker fixture (B3),
+   sparse 4000- and 8000-broker fixtures, and two calls in a row on two
+   B5-shaped models (the second gets the first's freed output buffer,
+   filled with a non-zero pattern in between). Every fixture runs the
+   kernel as it chooses and with each of its two ways of summing the
+   per-broker rows forced (shared memory, global), with each plan reported.
+   Integers must match exactly, floats within rtol 1e-5 / atol 1e-3 (float
+   sums are taken with atomics in a run-dependent order);
 4. main path — ``ccx_torch.optimizer.optimize`` on B5 with the full
    default goal stack at the bench's "target" rung (16 chains x 250 steps x
    8 moves, polish 150 iterations patience 8, leader pass 100) with
@@ -21,9 +25,19 @@ Phases, one JSON line each:
    ``verified`` and the kernel launch counts of this run; the final stack is
    re-scored with the plain aggregates, and a small cluster's stack on the
    card is held against the same stack on the CPU;
-5. profile — the device busy share of 10 SA steps and 10 polish
+5. after the main path, which so runs as it would alone: the same kernel
+   check on B6 (10k brokers / 1M partitions, whose shared rows need broker
+   tiles), then the kernel times at B5, 4000 brokers and B6 (last, since
+   torch.profiler's tracing slows every later launch of the process):
+   ``device_ms`` (every device op of a call, from torch.profiler, each named
+   in ``device_ops``), ``call_ms`` (CUDA events around back-to-back calls),
+   ``host_us`` (host enqueue time per call) and the byte bound, for the
+   kernel's own choice and for each forced way; at B5 also the plain
+   version's time. The ``kernels`` line gives B5's: its ``ms`` is the call
+   time ``call_ms``, beside ``device_ms`` and ``host_us``;
+6. profile — the device busy share of 10 SA steps and 10 polish
    iterations on the repaired B5 model, under torch.profiler;
-6. the card's ``nvidia-smi`` line, then the ``kernels`` line, then the
+7. the card's ``nvidia-smi`` line, then the ``kernels`` line, then the
    contract line ``{"ok": true, "device": {...}}`` last.
 
 Any failed check, an unverified result, remaining hard violations or a
@@ -55,6 +69,17 @@ POLISH_ITERS, POLISH_PATIENCE, LEADER_ITERS = 150, 8, 100
 #: CUDA-event timing launches per kernel; SA steps and polish iterations
 #: under the profiler
 TIMING_ITERS, PROFILE_STEPS = 200, 10
+#: sparse wide clusters, two partitions per broker: B pads to 4096, then to
+#: 8192, where the kernel's rows in shared memory need broker tiles
+WIDE_SPEC = dict(n_brokers=4000, n_racks=40, n_topics=64, n_partitions=8000,
+                 n_dead_brokers=3, seed=7)
+WIDER_SPEC = dict(n_brokers=8000, n_racks=40, n_topics=64, n_partitions=16000,
+                  n_dead_brokers=3, seed=8)
+#: fixtures of the kernel-time phase: B5, a sparse wide cluster, and B6,
+#: whose 16384 brokers need broker tiles for rows in shared memory
+TIME_FIXTURES = ("B5", "4000-brokers", "B6")
+#: the kernel's ways of summing the per-broker rows, forced in the checks
+ROW_WAYS = ("shared", "global")
 
 
 def emit(obj: dict) -> None:
@@ -81,6 +106,74 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def short_name(name: str) -> str:
+    """A device op's name without its return type, namespace noise and
+    argument list."""
+    name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return name.split("(")[0] if "(" in name else name
+
+
+def kernel_times(fn, iters: int) -> dict:
+    """One call ``fn`` read three ways, each over ``iters`` back-to-back
+    calls after a warm-up: ``host_us``, the host clock around the enqueues
+    with no synchronize inside; ``call_ms``, CUDA events around the calls;
+    ``device_ms``, the device time per call of every op the calls put on the
+    card, from torch.profiler, with ``device_ops`` naming each op, its
+    count per call and its time per launch."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_us = (time.perf_counter() - t) / iters * 1e6
+    torch.cuda.synchronize()
+    call_ms = cuda_ms(fn, iters)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ops: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n_us = ops.setdefault(short_name(e.name), [0, 0.0])
+            n_us[0] += 1
+            n_us[1] += e.time_range.elapsed_us()
+    # each op's mean time times its launches per call: the trace of a long
+    # loop may miss a few events
+    return {
+        "device_ms": sum(us / n * max(1, round(n / iters)) for n, us in ops.values()) / 1e3,
+        "call_ms": call_ms, "host_us": host_us,
+        "device_ops": {k: {"per_call": n / iters, "ms": us / n / 1e3}
+                       for k, (n, us) in ops.items()},
+    }
+
+
+def fixture_spec(name: str, fixtures):
+    """The ``RandomClusterSpec`` of a named fixture, from the ``fixtures``
+    module given (``ccx_torch.model.fixtures`` of some checkout)."""
+    if name == "4000-brokers":
+        return fixtures.RandomClusterSpec(**WIDE_SPEC)
+    if name == "8000-brokers":
+        return fixtures.RandomClusterSpec(**WIDER_SPEC)
+    return fixtures.bench_spec(name)
+
+
+def time_kernel(agg_op, m, rows: str | None = None) -> dict:
+    """``kernel_times`` of one ``agg_op.broker_aggregates_cuda`` call on
+    ``m`` (``rows`` forced where given), beside the byte bound."""
+    if rows is None:
+        call = lambda: agg_op.broker_aggregates_cuda(m)  # noqa: E731
+    else:
+        call = lambda: agg_op.broker_aggregates_cuda(m, rows)  # noqa: E731
+    bound_ms, bound_by = aggregates_bound_ms(m)
+    return {**kernel_times(call, TIMING_ITERS), "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def aggregates_bound_ms(m) -> tuple[float, str]:
@@ -153,7 +246,8 @@ def main() -> None:
     sys.path.insert(0, str(ROOT))
     from ccx_torch.goals.base import GoalConfig
     from ccx_torch.goals.stack import DEFAULT_GOAL_ORDER, evaluate_stack
-    from ccx_torch.model.fixtures import RandomClusterSpec, bench_spec, random_cluster
+    from ccx_torch.model import fixtures
+    from ccx_torch.model.fixtures import bench_spec, random_cluster, shuffled_partitions
     from ccx_torch.model.tensor_model import model_arrays, model_from_arrays
     from ccx_torch.ops import broker_aggregates as agg_op
     from ccx_torch.optimizer import OptimizeOptions, optimize
@@ -184,27 +278,59 @@ def main() -> None:
     b5 = random_cluster(bench_spec("B5"), device=dev)
     fixture_s = time.monotonic() - t
     checks = {}
-    for name, m in (
-        ("B5", b5),
-        ("B4-jbod", random_cluster(bench_spec("B4"), device=dev)),
-        ("B3-dead-brokers", random_cluster(bench_spec("B3"), device=dev)),
-        # B pads to 4096: the per-broker rows no longer fit in shared memory
-        ("4000-brokers", random_cluster(RandomClusterSpec(
-            n_brokers=4000, n_racks=40, n_topics=64, n_partitions=8000,
-            n_dead_brokers=3, seed=7), device=dev)),
-    ):
-        got = agg_op.broker_aggregates_cuda(m)
+
+    def check(name, m, same_as=None):
+        """``m``'s kernel results, as chosen and each way forced, against
+        the plain version (and on the integers against ``same_as``);
+        returns the chosen one."""
         ref = agg_op.broker_aggregates_plain(m)
+        checks[name] = {"P": m.P, "B": m.B, "T": m.num_topics, "D": m.D}
+        for rows in ("auto", *ROW_WAYS):
+            got = agg_op.broker_aggregates_cuda(m, rows)
+            torch.cuda.synchronize()
+            checks[name][rows] = {"plan": agg_op.plan(m, rows),
+                                  "max_abs_err": compare_aggregates(got, ref)}
+            for f in INT_FIELDS if same_as is not None else ():
+                if not torch.equal(getattr(got, f), getattr(same_as, f)):
+                    fail(f"{name} ({rows}) disagrees on {f}")
+            if rows == "auto":
+                chosen = got
+        return chosen
+
+    got_b5 = check("B5", b5)
+    check("B5-shuffled", shuffled_partitions(b5, seed=5), same_as=got_b5)
+    del got_b5
+    check("B4-jbod", random_cluster(bench_spec("B4"), device=dev))
+    check("B3-dead-brokers", random_cluster(bench_spec("B3"), device=dev))
+    for name in ("4000-brokers", "8000-brokers"):
+        check(name, random_cluster(fixture_spec(name, fixtures), device=dev))
+    # two calls in a row on two models of one shape: the second call gets
+    # the first's freed buffer, filled with a non-zero pattern in between,
+    # so an output cell the kernel neither zeroes nor writes shows
+    relabel = torch.randperm(b5.B, generator=torch.Generator().manual_seed(5)).int().to(dev)
+    other = b5.replace(assignment=torch.where(
+        b5.assignment >= 0, relabel[b5.assignment.clamp(min=0).long()], -1).int())
+    words = agg_op.output_layout(b5.B, b5.num_topics, b5.D)[1]
+    for rows in ("auto", *ROW_WAYS):
+        first = agg_op.broker_aggregates_cuda(b5, rows)
+        compare_aggregates(first, agg_op.broker_aggregates_plain(b5))
+        first_ptr = first.topic_replica_count.data_ptr()
+        del first
+        junk = torch.full((words,), -7, dtype=torch.int32, device=dev)
+        junk_ptr = junk.data_ptr()
+        del junk
+        second = agg_op.broker_aggregates_cuda(other, rows)
+        ref = agg_op.broker_aggregates_plain(other)
         torch.cuda.synchronize()
-        checks[name] = {"P": m.P, "B": m.B, "T": m.num_topics, "D": m.D,
-                        "max_abs_err": compare_aggregates(got, ref)}
-    kernel_ms = cuda_ms(lambda: agg_op.broker_aggregates_cuda(b5), TIMING_ITERS)
-    plain_ms = cuda_ms(lambda: agg_op.broker_aggregates_plain(b5), TIMING_ITERS)
-    bound_ms, bound_by = aggregates_bound_ms(b5)
-    max_err = max(c["max_abs_err"] for c in checks.values())
+        if not second.topic_replica_count.data_ptr() == junk_ptr == first_ptr:
+            fail(f"two-in-a-row ({rows}): the second call did not get the first's buffer")
+        checks.setdefault("two-in-a-row", {})[rows] = {
+            "max_abs_err": compare_aggregates(second, ref), "same_buffer": True}
+        del second, ref
+    max_err = max(c[rows]["max_abs_err"] for c in checks.values()
+                  for rows in ("auto", *ROW_WAYS))
     emit({"phase": "kernel-check", "kernel": "broker_aggregates", "fixtures": checks,
-          "B5_fixture_seconds": fixture_s, "ms": kernel_ms, "plain_ms": plain_ms,
-          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+          "B5_fixture_seconds": fixture_s})
 
     # --- 4. main path ----------------------------------------------------------
     cfg = GoalConfig()
@@ -263,7 +389,30 @@ def main() -> None:
         fail("small-cluster stack costs differ between the card and the CPU")
     emit({"phase": "result-check", "replain_violations_equal": True, "small_cpu_equal": True})
 
-    # --- 5. profile ------------------------------------------------------------
+    # --- 5. B6's check and the kernel times, after the main path; the times
+    # last of the two (once torch.profiler has traced the card, every later
+    # launch in the process pays for the tracing) ------------------------------
+    t = time.monotonic()
+    b6 = random_cluster(bench_spec("B6"), device=dev)
+    b6_fixture_s = time.monotonic() - t
+    checks.clear()
+    check("B6", b6)
+    emit({"phase": "kernel-check", "kernel": "broker_aggregates", "fixtures": checks,
+          "B6_fixture_seconds": b6_fixture_s})
+    max_err = max(max_err, *(checks["B6"][rows]["max_abs_err"] for rows in ("auto", *ROW_WAYS)))
+    wide = random_cluster(fixture_spec("4000-brokers", fixtures), device=dev)
+    for name, m in zip(TIME_FIXTURES, (b5, wide, b6)):
+        line = {"phase": "kernel-time", "kernel": "broker_aggregates", "model": name,
+                "plan": agg_op.plan(m), **time_kernel(agg_op, m),
+                "forced": {rows: time_kernel(agg_op, m, rows) for rows in ROW_WAYS}}
+        if name == "B5":
+            times = line
+            plain_ms = cuda_ms(lambda: agg_op.broker_aggregates_plain(b5), TIMING_ITERS)
+            line.update(plain_ms=plain_ms, library_ms=None)
+        emit(line)
+    del wide, b6
+
+    # --- 6. profile ------------------------------------------------------------
     repaired, _ = hard_repair(b5, cfg, DEFAULT_GOAL_ORDER)
     k = PROFILE_STEPS
     sa_opts = dataclasses.replace(opts.anneal, n_steps=k)
@@ -275,15 +424,17 @@ def main() -> None:
           "polish": {"iters": k, **device_busy(
               lambda: greedy_optimize(repaired, cfg, DEFAULT_GOAL_ORDER, polish))}})
 
-    # --- 6. summary lines ------------------------------------------------------
+    # --- 7. summary lines ------------------------------------------------------
     print(smi, flush=True)
     emit({"kernels": [{
         "name": "broker_aggregates", "route": "cuda",
         "source": "ccx_torch/csrc/broker_aggregates.cu",
         "replaces": "ccx/ops/mxu_aggregates.py:210",
         "launches": launches, "max_abs_err": max_err,
-        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None,
+        "ms": times["call_ms"], "device_ms": times["device_ms"],
+        "call_ms": times["call_ms"], "host_us": times["host_us"],
+        "plain_ms": plain_ms, "bound_ms": times["bound_ms"],
+        "bound_by": times["bound_by"], "library_ms": None,
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})
 
