@@ -1,17 +1,22 @@
 """The optimizer entry point — the reference's GoalOptimizer.optimizations.
 
 ``optimize`` turns a cluster model into verified replica and leadership
-proposals, in these stages:
+proposals, in the JAX package's stages and order:
 
     stack_before -> hard_repair -> hot list -> anneal -> polish (+ repair
-    rounds while hard violations remain) -> leadership pass ->
-    finalize_preferred_leaders -> columnar_diff -> verify_optimization
+    rounds while hard violations remain; only the repair rounds when
+    ``run_polish`` is off) -> portfolio (a cold greedy run from the input,
+    kept if lexicographically better) -> topic-rebalance rounds (each a
+    TopicReplicaDistribution shed plus a TRD-guarded re-polish, adopted only
+    on a lexicographic improvement) -> swap-polish -> leadership pass ->
+    swap-polish-post -> finalize_preferred_leaders -> columnar_diff ->
+    verify_optimization
 
 It runs on the model's device (build the model on CUDA, the default, or pass
-``device="cpu"`` to the model builder). ``OptimizeOptions`` holds the effort
-of the searches; the topic-rebalance stage, the cold-greedy portfolio, the
-swap polish, the warm pipeline, the movement plan and the device mesh of the
-JAX package are not part of this pipeline.
+``device="cpu"`` to the model builder). ``OptimizeOptions`` carries the JAX
+package's defaults for every field it has. The JAX package's repair
+backends and overlap, warm pipeline, movement plan, device mesh and the
+movement-cost adoption tier are not part of this pipeline.
 """
 
 from __future__ import annotations
@@ -27,8 +32,8 @@ from ccx_torch.goals.stack import DEFAULT_GOAL_ORDER, StackResult, evaluate_stac
 from ccx_torch.model.tensor_model import TensorClusterModel
 from ccx_torch.proposals import ColumnarDiff, columnar_diff
 from ccx_torch.search.annealer import AnnealOptions, allows_inter_broker, anneal, hot_partition_list
-from ccx_torch.search.greedy import GreedyOptions, greedy_optimize
-from ccx_torch.search.repair import finalize_preferred_leaders, hard_repair
+from ccx_torch.search.greedy import GreedyOptions, SwapPolishOptions, greedy_optimize, swap_polish
+from ccx_torch.search.repair import finalize_preferred_leaders, hard_repair, topic_rebalance
 from ccx_torch.search.state import MOVE_KIND_NAMES
 from ccx_torch.verify import Verification, verify_optimization
 
@@ -44,17 +49,41 @@ LEADERSHIP_GOALS = frozenset(
 )
 
 
-#: polish rounds in all while hard violations remain, each after a fresh
-#: hard_repair of the current placement
-MAX_REPAIR_ROUNDS = 3
-
-
 @dataclasses.dataclass(frozen=True)
 class OptimizeOptions:
     anneal: AnnealOptions = AnnealOptions()
     polish: GreedyOptions = GreedyOptions(n_candidates=256, max_iters=400)
+    run_polish: bool = True
+    #: polish rounds in all while hard violations remain, each after a fresh
+    #: hard_repair of the current placement
+    max_repair_rounds: int = 3
+    #: end with a leadership-only greedy pass
+    run_leader_pass: bool = True
+    #: shed-and-re-polish rounds of the TopicReplicaDistribution stage (0: off)
+    topic_rebalance_rounds: int = 2
+    #: sweep cap per round (the shed stops by itself once a sweep moves
+    #: nothing; this bounds latency)
+    topic_rebalance_max_sweeps: int = 1024
+    #: let the shed move leader-held over cells by a leadership transfer
+    topic_rebalance_move_leaders: bool = True
+    #: re-polish with the TRD guard first, unguarded if that is not adopted
+    topic_rebalance_guarded: bool = True
+    #: re-polish iterations (None: polish.max_iters)
+    topic_rebalance_polish_iters: int | None = None
     #: iteration cap of the final leadership pass (None: polish.max_iters)
     leader_pass_max_iters: int | None = None
+    #: swap-polish iterations before the leadership pass (0: off)
+    swap_polish_iters: int = 0
+    #: swap-polish iterations after the leadership pass (0: off)
+    swap_polish_post_iters: int = 0
+    #: coupled candidates per swap-polish iteration, split evenly between
+    #: replica-swap pairs and leadership transfers
+    swap_polish_candidates: int = 128
+    swap_polish_chunk_iters: int = 50
+    swap_polish_guarded: bool = True
+    #: also run a plain greedy from the input and keep the lexicographic
+    #: winner (the portfolio)
+    run_cold_greedy: bool = True
 
 
 @dataclasses.dataclass
@@ -71,6 +100,8 @@ class OptimizerResult:
     phase_seconds: dict = dataclasses.field(default_factory=dict)
     #: per-move-kind proposal/acceptance counts over every search stage
     move_counters: dict = dataclasses.field(default_factory=dict)
+    #: the SA step engine that ran (``annealer.step_engine``)
+    sa_engine: str = ""
 
     @property
     def num_replica_movements(self) -> int:
@@ -79,6 +110,20 @@ class OptimizerResult:
     @property
     def num_leadership_movements(self) -> int:
         return self.diff.num_leadership_movements
+
+
+def _lex_better(a: StackResult, b: StackResult) -> bool:
+    """True when a's (hard violations, cost vector) beats b's
+    lexicographically (hard feasibility outranks every soft tier)."""
+    ka = [float(a.hard_violations)] + a.costs.tolist()
+    kb = [float(b.hard_violations)] + b.costs.tolist()
+    tol = 1e-6
+    for x, y in zip(ka, kb):
+        if x < y - tol:
+            return True
+        if x > y + tol:
+            return False
+    return False
 
 
 def _sync(device: torch.device) -> None:
@@ -125,22 +170,82 @@ def optimize(
     tally(sa)
     model, stack_after = sa.model, sa.stack_after
     with phase("polish"):
-        polish = greedy_optimize(model, cfg, goal_names, opts.polish)
-        tally(polish)
-        model, stack_after = polish.model, polish.stack_after
-        n_polish += polish.n_moves
-        for _ in range(MAX_REPAIR_ROUNDS - 1):
+        if opts.run_polish:
+            polish = greedy_optimize(model, cfg, goal_names, opts.polish)
+            tally(polish)
+            model, stack_after = polish.model, polish.stack_after
+            n_polish += polish.n_moves
+        # the repair retries run with the polish off too
+        for _ in range(max(opts.max_repair_rounds - 1, 0)):
             if float(stack_after.hard_violations) <= 0:
                 break
             model, n_r = hard_repair(model, cfg, goal_names)
             n_polish += n_r
+            if not opts.run_polish:
+                if n_r == 0:
+                    break
+                stack_after = evaluate_stack(model, cfg, goal_names)
+                continue
             polish = greedy_optimize(model, cfg, goal_names, opts.polish)
             tally(polish)
             if polish.n_moves == 0 and n_r == 0:
                 break
             model, stack_after = polish.model, polish.stack_after
             n_polish += polish.n_moves
-    if LEADERSHIP_GOALS & set(goal_names) and inter:
+    if opts.run_cold_greedy:
+        with phase("portfolio"):
+            cold = greedy_optimize(m, cfg, goal_names, opts.polish)
+            tally(cold)
+            if _lex_better(cold.stack_after, stack_after):
+                model, stack_after = cold.model, cold.stack_after
+                # the result is the cold run's, started from the input
+                n_polish = cold.n_moves
+    if opts.topic_rebalance_rounds > 0 and "TopicReplicaDistributionGoal" in goal_names and inter:
+        with phase("topic-rebalance"):
+            repolish = opts.polish
+            if opts.topic_rebalance_polish_iters is not None:
+                repolish = dataclasses.replace(opts.polish, max_iters=opts.topic_rebalance_polish_iters)
+            for _ in range(opts.topic_rebalance_rounds):
+                swept, n_swept = topic_rebalance(
+                    model, cfg,
+                    max_sweeps=opts.topic_rebalance_max_sweeps,
+                    move_leaders=opts.topic_rebalance_move_leaders,
+                )
+                if not n_swept:
+                    break
+                # the guarded re-polish recovers the usage tiers without
+                # trading the shed's topic cells back; unguarded if the
+                # guarded move space is not adopted
+                cand = greedy_optimize(
+                    swept, cfg, goal_names, repolish, trd_guard=opts.topic_rebalance_guarded
+                )
+                tally(cand)
+                if opts.topic_rebalance_guarded and not _lex_better(cand.stack_after, stack_after):
+                    cand = greedy_optimize(swept, cfg, goal_names, repolish)
+                    tally(cand)
+                if not _lex_better(cand.stack_after, stack_after):
+                    break
+                model, stack_after = cand.model, cand.stack_after
+                n_polish += n_swept + cand.n_moves
+
+    def run_swap_polish(model_in, iters: int, name: str):
+        with phase(name):
+            ksw = max(opts.swap_polish_candidates // 2, 1)
+            sp = swap_polish(model_in, cfg, goal_names, SwapPolishOptions(
+                n_swap_candidates=ksw,
+                n_lead_candidates=max(opts.swap_polish_candidates - ksw, 0),
+                max_iters=iters,
+                trd_guard=opts.swap_polish_guarded,
+                chunk_iters=opts.swap_polish_chunk_iters,
+            ))
+            tally(sp)
+        return sp
+
+    if opts.swap_polish_iters > 0 and inter:
+        sp = run_swap_polish(model, opts.swap_polish_iters, "swap-polish")
+        model, stack_after = sp.model, sp.stack_after
+        n_polish += sp.n_moves
+    if opts.run_leader_pass and LEADERSHIP_GOALS & set(goal_names) and inter:
         with phase("leader-pass"):
             iters = opts.polish.max_iters
             if opts.leader_pass_max_iters is not None:
@@ -152,6 +257,10 @@ def optimize(
             tally(lead)
             model, stack_after = lead.model, lead.stack_after
             n_polish += lead.n_moves
+    if opts.swap_polish_post_iters > 0 and inter:
+        sp = run_swap_polish(model, opts.swap_polish_post_iters, "swap-polish-post")
+        model, stack_after = sp.model, sp.stack_after
+        n_polish += sp.n_moves
     with phase("preferred-leader"):
         model, stack_after, _ = finalize_preferred_leaders(model, cfg, goal_names, stack_after)
     with phase("diff"):
@@ -180,4 +289,5 @@ def optimize(
             name: {"proposed": kind_prop[i], "accepted": kind_acc[i]}
             for i, name in enumerate(MOVE_KIND_NAMES)
         },
+        sa_engine=sa.engine,
     )

@@ -1,0 +1,78 @@
+"""The effort ladder of the JAX package's bench (``bench.py``'s ``RUNGS`` and
+``build_opts``), as the port's options: one construction site for every
+caller that runs a rung.
+
+A rung fixes the SA effort (chains, steps, moves per step), the polish
+budget and the pipeline stages:
+
+* ``target``: the least effort that verifies with every goal improving: no
+  topic-rebalance stage, no portfolio, leader pass capped at 100;
+* ``lean``: the pre-shed polish skipped (where the stack scores
+  TopicReplicaDistribution), one converged leader-moving shed with a
+  700-iteration TRD-guarded re-polish, swap polish 150 before and 300 after
+  the leadership pass, leader pass capped at 150;
+* ``full``: the JAX defaults for the stages (two shed rounds, the
+  portfolio) at the largest effort; ``custom`` equals ``lean``'s stages
+  with ``full``'s effort and the portfolio on.
+
+The bench's environment overrides (chains, steps, moves, polish iterations,
+the portfolio switch) and its device mesh are not part of this copy.
+"""
+
+from __future__ import annotations
+
+from ccx_torch.goals.stack import DEFAULT_GOAL_ORDER
+from ccx_torch.optimizer import OptimizeOptions
+from ccx_torch.search.annealer import AnnealOptions
+from ccx_torch.search.greedy import GreedyOptions
+
+#: rung name -> (chains, steps, moves_per_step, polish_iters)
+RUNGS = {
+    "smoke": (8, 100, 1, 10),
+    "target": (16, 250, 8, 150),
+    "lean": (16, 500, 8, 400),
+    "full": (32, 3000, 16, 1600),
+    "custom": (32, 3000, 16, 1600),
+}
+
+
+def build_opts(name: str, rung: str) -> tuple[tuple[str, ...], OptimizeOptions, dict]:
+    """(goal_names, OptimizeOptions, effort) of config ``name`` (B1..B6) at
+    ``rung``."""
+    goal_names = (
+        ("StructuralFeasibility", "ReplicaDistributionGoal") if name == "B1" else DEFAULT_GOAL_ORDER
+    )
+    n_chains, n_steps, moves, polish_iters = RUNGS[rung]
+    if rung == "target":
+        stages = {"topic_rebalance_rounds": 0, "leader_pass_max_iters": 100}
+    elif rung in ("lean", "custom"):
+        stages = {
+            "topic_rebalance_rounds": 1,
+            "topic_rebalance_max_sweeps": 1024,
+            "topic_rebalance_move_leaders": True,
+            "topic_rebalance_polish_iters": 700,
+            "swap_polish_iters": 150,
+            "swap_polish_post_iters": 300,
+            "leader_pass_max_iters": 150,
+            # the shed's guarded re-polish does the polish's work
+            "run_polish": "TopicReplicaDistributionGoal" not in goal_names,
+        }
+    else:
+        stages = {}
+    opts = OptimizeOptions(
+        anneal=AnnealOptions(n_chains=n_chains, n_steps=n_steps, moves_per_step=moves, seed=42),
+        polish=GreedyOptions(
+            n_candidates=256, max_iters=polish_iters, patience=8 if rung == "target" else 16
+        ),
+        run_cold_greedy=rung in ("full", "custom"),
+        **stages,
+    )
+    effort = {
+        "chains": n_chains, "steps": n_steps, "moves": moves, "polish_iters": polish_iters,
+        "portfolio": opts.run_cold_greedy,
+        "trd_rounds": opts.topic_rebalance_rounds,
+        "swap_polish": [opts.swap_polish_iters, opts.swap_polish_post_iters],
+        "swap_coupling": opts.anneal.swap_coupling,
+        "p_swap": opts.anneal.p_swap,
+    }
+    return goal_names, opts, effort

@@ -11,11 +11,23 @@ stack from incrementally-kept aggregates (O(R) per move,
 * otherwise Metropolis on the tier-weighted soft delta, with a geometric
   temperature schedule.
 
+With probability ``p_swap`` a proposal is a two-partition swap (REPLICA_SWAP:
+two replicas exchange brokers, or a leadership rotation between two
+partitions), which crosses count-preserving barriers single moves cannot.
+Three step engines, chosen as the JAX package chooses them (``step_engine``):
+
+* ``single`` (``p_swap == 0``): sequential single moves;
+* ``sequential``: sequential proposals through one two-partition path, a
+  single move being a swap with an inert partner;
+* ``batched`` (the default at scale): the step's proposals are drawn,
+  scored and accepted against the step's base state, then a disjoint subset
+  (in draw order) is applied at once; swap endpoints are drawn
+  usage-coupled from candidate pools with probability ``swap_coupling``.
+
 Every random number comes from the caller's ``torch.Generator`` through the
 ``draw_*`` functions; the plan and accept functions take those draws as
 tensors, so a test can hand them exactly the draws another implementation
-made. The two-partition swap move class is not part of this package yet:
-``p_swap`` must be 0.
+made.
 """
 
 from __future__ import annotations
@@ -25,22 +37,36 @@ import dataclasses
 import numpy as np
 import torch
 
+from ccx_torch.common.resources import Resource
+from ccx_torch.goals import topic_terms as tt
 from ccx_torch.goals.base import GOAL_REGISTRY, GoalConfig
 from ccx_torch.goals.stack import DEFAULT_GOAL_ORDER, StackResult, evaluate_stack, soft_weights
-from ccx_torch.model.aggregates import broker_aggregates
+from ccx_torch.model.aggregates import BROKER_FIELDS, broker_aggregates
 from ccx_torch.model.tensor_model import TensorClusterModel
 from ccx_torch.search.state import (
+    KIND_LEADERSHIP_SWAP,
+    KIND_REPLICA_SWAP,
     KIND_SINGLE,
     PartitionView,
     SearchState,
+    _placement_updates,
+    _take_rows,
     apply_move,
+    apply_swap,
+    broker_pressure,
     bump_kind_counters,
+    cat_views,
     gather_views,
     init_search_state,
+    make_cost_vector_fn,
     make_move_scorer,
+    make_swap_scorer,
     make_topic_group,
     max_partitions_per_topic,
+    scatter_partition,
     stack_needs_topic,
+    usage_weights,
+    view_rows,
     with_placement,
 )
 
@@ -54,9 +80,13 @@ MOVE_DISK = 2         # INTRA_BROKER_REPLICA_MOVEMENT (JBOD)
 class AnnealOptions:
     n_chains: int = 64
     n_steps: int = 3000
-    #: proposals per chain per step, composed sequentially (each scores the
-    #: state the previous one left)
+    #: proposals per chain per step
     moves_per_step: int = 1
+    #: True: a step's proposals are scored against the step's base state and
+    #: applied as a disjoint batch (the ``batched`` engine, where the cluster
+    #: is wide enough for the batch to be disjoint); False: they compose
+    #: sequentially, each scoring the state the previous one left
+    batched: bool = True
     t0: float = 0.3          # initial temperature (soft-cost units)
     t1: float = 1e-4         # final temperature
     p_leadership: float = 0.15
@@ -67,9 +97,20 @@ class AnnealOptions:
     #: probability of drawing from the hot list (replicas on dead brokers or
     #: disks, rack duplicates) when it is non-empty
     p_evac: float = 0.3
-    #: share of two-partition REPLICA_SWAP proposals; the swap move class is
-    #: not ported yet, so only 0 is accepted
-    p_swap: float = 0.0
+    #: share of two-partition swap proposals (0 disables them)
+    p_swap: float = 0.15
+    #: >= 0: the swap share moves linearly from ``p_swap`` to this value
+    #: over the run; < 0: constant ``p_swap``
+    p_swap_end: float = -1.0
+    #: share of swap proposals whose endpoints are drawn usage-coupled
+    #: (batched engine only): each endpoint Gumbel-picked from a pool of
+    #: ``couple_pool`` candidates ranked by broker band pressure x replica
+    #: usage
+    swap_coupling: float = 0.5
+    couple_pool: int = 4
+    #: rank the coupled pools' scores in bfloat16 (rank-order only; costs
+    #: and acceptance stay float32)
+    bf16_scoring: bool = False
     seed: int = 0
 
 
@@ -84,6 +125,8 @@ class AnnealResult:
     best_chain: int
     n_prop_kind: tuple[int, ...] = (0, 0, 0)
     n_acc_kind: tuple[int, ...] = (0, 0, 0)
+    #: the step engine that ran (``step_engine``)
+    engine: str = "single"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,10 +144,36 @@ class ProposalParams:
     #: False for intra-broker-only stacks: hot draws never force an
     #: inter-broker evacuation move
     allow_inter: bool = True
+    #: share of two-partition swap proposals (0 disables the swap branch)
+    p_swap: float = 0.15
     #: stack scores capacity goals: hot draws target replicas on brokers
     #: above effective capacity and biased destinations avoid them
     target_capacity: bool = True
     cap_thresholds: tuple[float, float, float, float] = (1.0, 1.0, 1.0, 1.0)
+    #: share of swap proposals that rotate leadership instead of exchanging
+    #: replicas (``lead_swap_share``)
+    p_lead_swap: float = 0.5
+    #: share of swap proposals drawn usage-coupled (batched engine only)
+    p_couple: float = 0.0
+    #: candidates per coupled endpoint draw
+    couple_pool: int = 4
+    #: coupled pool scores in bfloat16
+    bf16: bool = False
+
+
+def lead_swap_share(p_leadership: float) -> float:
+    """Leadership-rotation share of swap proposals: 0.5 at the default
+    p_leadership=0.15, proportionally less below it, 0 when leadership moves
+    are off."""
+    if p_leadership <= 0:
+        return 0.0
+    return 0.5 * min(p_leadership / 0.15, 1.0)
+
+
+def scoring_dtype(bf16: bool) -> torch.dtype:
+    """dtype of rank-order-only scoring intermediates (the coupled pool
+    scores); cost vectors and acceptance never use it."""
+    return torch.bfloat16 if bf16 else torch.float32
 
 
 RACK_TARGET_GOALS = frozenset(
@@ -388,6 +457,156 @@ def _single_plan(
     )
 
 
+@dataclasses.dataclass
+class SwapDraws:
+    r1: torch.Tensor         # int[K] slot of partition 1 in [0, R)
+    r2: torch.Tensor         # int[K] slot of partition 2 in [0, R)
+    u_d1: torch.Tensor       # float32[K, D] in [1e-12, 1): Gumbel noise of p1's new disk
+    u_d2: torch.Tensor       # float32[K, D] in [1e-12, 1): Gumbel noise of p2's new disk
+    u_kind: torch.Tensor     # float32[K] leadership rotation if < p_lead_swap
+
+
+def draw_swap(gen: torch.Generator, K: int, m: TensorClusterModel) -> SwapDraws:
+    dev = m.device
+    return SwapDraws(
+        r1=torch.randint(0, m.R, (K,), generator=gen, device=dev),
+        r2=torch.randint(0, m.R, (K,), generator=gen, device=dev),
+        u_d1=_uniform(gen, (K, m.D), dev, 1e-12),
+        u_d2=_uniform(gen, (K, m.D), dev, 1e-12),
+        u_kind=_uniform(gen, (K,), dev),
+    )
+
+
+def _slot_mask(r: torch.Tensor, R: int) -> torch.Tensor:
+    """bool[K, R] — slot r[k] of row k."""
+    return torch.arange(R, device=r.device)[None, :] == r[:, None]
+
+
+def _swap_plan(
+    d: SwapDraws,
+    m: TensorClusterModel,
+    pp: ProposalParams,
+    p1: torch.Tensor,
+    view1: PartitionView,
+    p2: torch.Tensor,
+    view2: PartitionView,
+    use_lead: torch.Tensor | None = None,
+    couple: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None,
+):
+    """Build K swap candidates from two gathered views: returns (old1, new1,
+    old2, new2, feasible bool[K], is_lead bool[K]).
+
+    Two variants share the draw: a replica swap (two replicas exchange
+    brokers; every broker keeps its replica count) and a leadership
+    rotation (p1's leadership moves to p2's leader broker and p2's to p1's;
+    every broker keeps its leader count), which is how leader-bytes and
+    preferred-leader gains cross the LeaderReplicaDistribution tier.
+    ``use_lead`` pre-decides the variant (the batched engine draws it with
+    the pools); None uses ``d.u_kind``. ``couple = (use_couple, r1_c,
+    r2_c)`` replaces the uniform slots with the coupled pools' slots."""
+    R, B, D = m.R, m.B, m.D
+    r1, r2 = d.r1.long(), d.r2.long()
+    if couple is not None:
+        use_couple, r1_c, r2_c = couple
+        r1 = torch.where(use_couple, r1_c.long(), r1)
+        r2 = torch.where(use_couple, r2_c.long(), r2)
+    x = _at(view1.assign, r1)
+    y = _at(view2.assign, r2)
+    sx, sy = x.clamp(0, B - 1).long(), y.clamp(0, B - 1).long()
+    recv_ok = m.broker_ok & ~m.broker_excl_replicas
+    excl_lead = m.broker_excl_leadership
+    lead1 = r1 == view1.leader
+    lead2 = r2 == view2.leader
+    both = (p1 != p2) & view1.pvalid & view2.pvalid & ~view1.immovable & ~view2.immovable
+    ok = (
+        both & (x >= 0) & (y >= 0) & (x != y) & recv_ok[sx] & recv_ok[sy]
+        & ~(view1.assign == y[:, None]).any(1)
+        & ~(view2.assign == x[:, None]).any(1)
+        & ~(lead1 & excl_lead[sy])
+        & ~(lead2 & excl_lead[sx])
+    )
+    neg_inf = float("-inf")
+    if D > 1:
+        d1 = torch.where(m.disk_alive[sy], _gumbel(d.u_d1), neg_inf).argmax(1).int()
+        d2 = torch.where(m.disk_alive[sx], _gumbel(d.u_d2), neg_inf).argmax(1).int()
+    else:
+        d1 = d2 = torch.zeros_like(x)
+    at1, at2 = _slot_mask(r1, R), _slot_mask(r2, R)
+    old1 = (view1.assign, view1.leader, view1.disk)
+    old2 = (view2.assign, view2.leader, view2.disk)
+    new1 = (
+        torch.where(at1, y[:, None], view1.assign),
+        view1.leader,
+        torch.where(at1, d1[:, None], view1.disk),
+    )
+    new2 = (
+        torch.where(at2, x[:, None], view2.assign),
+        view2.leader,
+        torch.where(at2, d2[:, None], view2.disk),
+    )
+
+    # --- leadership rotation ---------------------------------------------
+    lb1 = _at(view1.assign, view1.leader.clamp(0, R - 1)).clamp(0, B - 1).long()
+    lb2 = _at(view2.assign, view2.leader.clamp(0, R - 1)).clamp(0, B - 1).long()
+    # p1's leadership lands on lb2 (it needs a replica there), p2's on lb1
+    on_lb2 = view1.assign == lb2[:, None]
+    on_lb1 = view2.assign == lb1[:, None]
+    r1l = on_lb2.int().argmax(1).int()
+    r2l = on_lb1.int().argmax(1).int()
+    lead_allowed = m.broker_ok & ~excl_lead
+    ok_lead = (
+        both & (lb1 != lb2) & on_lb2.any(1) & on_lb1.any(1)
+        & lead_allowed[lb1] & lead_allowed[lb2]
+    )
+    if use_lead is None:
+        lead_possible = pp.p_lead_swap > 0
+        use_lead = (
+            d.u_kind < pp.p_lead_swap if lead_possible
+            else torch.zeros_like(ok)
+        )
+    else:
+        lead_possible = True
+    if lead_possible:
+        ul = use_lead[:, None]
+        new1 = (
+            torch.where(ul, view1.assign, new1[0]),
+            torch.where(use_lead, r1l, new1[1]),
+            torch.where(ul, view1.disk, new1[2]),
+        )
+        new2 = (
+            torch.where(ul, view2.assign, new2[0]),
+            torch.where(use_lead, r2l, new2[1]),
+            torch.where(ul, view2.disk, new2[2]),
+        )
+        ok = torch.where(use_lead, ok_lead, ok)
+    return old1, new1, old2, new2, ok, use_lead
+
+
+@dataclasses.dataclass
+class SwapProposalDraws:
+    p1: torch.Tensor         # int[K] uniform partition in [0, p_real)
+    p2: torch.Tensor         # int[K] uniform partition in [0, p_real)
+    plan: SwapDraws
+
+
+def propose_swap(
+    d: SwapProposalDraws,
+    state: SearchState,
+    chain: torch.Tensor,
+    m: TensorClusterModel,
+    pp: ProposalParams,
+):
+    """K uniform swap candidates: returns (p1, view1, old1, new1, p2,
+    view2, old2, new2, feasible, is_lead)."""
+    K = chain.shape[0]
+    views = gather_views(state, m, torch.cat([chain, chain]), torch.cat([d.p1, d.p2]))
+    view1 = view_rows(views, slice(0, K))
+    view2 = view_rows(views, slice(K, 2 * K))
+    p1, p2 = d.p1.long(), d.p2.long()
+    old1, new1, old2, new2, ok, is_lead = _swap_plan(d.plan, m, pp, p1, view1, p2, view2)
+    return p1, view1, old1, new1, p2, view2, old2, new2, ok, is_lead
+
+
 def goal_tols(cost_vec: torch.Tensor) -> torch.Tensor:
     """Per-goal significance tolerance for vector comparisons."""
     return 1e-6 + 1e-6 * cost_vec.abs()
@@ -443,6 +662,353 @@ def _anneal_step(
         bump_kind_counters(state, chains, KIND_SINGLE, 1, accept)
 
 
+@dataclasses.dataclass
+class UnifiedDraws:
+    """Draws of one proposal per chain of the sequential two-partition
+    engine."""
+
+    u_sel: torch.Tensor      # float32[C] swap if < the step's swap share
+    part: PartitionDraws     # the single move's partition
+    p1: torch.Tensor         # int[C] swap partitions in [0, p_real)
+    p2: torch.Tensor         # int[C] (also the single move's inert partner)
+    single: SingleDraws
+    swap: SwapDraws
+    u_acc: torch.Tensor      # float32[C] in [1e-12, 1): Metropolis uniform
+
+
+def draw_unified(
+    gen: torch.Generator, C: int, m: TensorClusterModel, pp: ProposalParams, n_evac: int
+) -> UnifiedDraws:
+    dev = m.device
+    return UnifiedDraws(
+        u_sel=_uniform(gen, (C,), dev),
+        part=draw_partitions(gen, C, pp, n_evac, dev),
+        p1=torch.randint(0, pp.p_real, (C,), generator=gen, device=dev),
+        p2=torch.randint(0, pp.p_real, (C,), generator=gen, device=dev),
+        single=draw_single(gen, C, m, pp),
+        swap=draw_swap(gen, C, m),
+        u_acc=_uniform(gen, (C,), dev, 1e-12),
+    )
+
+
+def _inert(use: torch.Tensor, rows):
+    """Rows where ``use``, else -1: an inert partner's rows, whose every
+    scatter contribution and write is exactly zero."""
+    return tuple(torch.where(use.view(-1, *([1] * (r.dim() - 1))), r, -1) for r in rows)
+
+
+def _pick(use: torch.Tensor, a, b):
+    """Row-wise ``a`` where ``use`` else ``b``, for (assign, leader, disk)."""
+    return tuple(torch.where(use.view(-1, *([1] * (x.dim() - 1))), x, y) for x, y in zip(a, b))
+
+
+def _unified_move(
+    state: SearchState,
+    d: UnifiedDraws,
+    temperature: float,
+    swap_share: float,
+    evac: torch.Tensor,
+    n_evac: int,
+    *,
+    m: TensorClusterModel,
+    pp: ProposalParams,
+    hard_arr: torch.Tensor,
+    weights: torch.Tensor,
+    swap_scorer,
+    group,
+) -> None:
+    """One proposal on every chain through the two-partition path: a swap
+    with probability ``swap_share``, else a single move with an inert
+    partner (the partner may equal the moved partition; its writes are
+    dropped)."""
+    C = state.n_chains
+    chains = torch.arange(C, device=m.device)
+    use_swap = d.u_sel < swap_share
+    p_single, use_evac = _draw_partition(d.part, pp, evac, n_evac)
+    pa = torch.where(use_swap, d.p1.long(), p_single)
+    pb = d.p2.long()
+    views = gather_views(state, m, torch.cat([chains, chains]), torch.cat([pa, pb]))
+    va, vb = view_rows(views, slice(0, C)), view_rows(views, slice(C, 2 * C))
+    _, new_s, feas_s = _single_plan(d.single, state, chains, m, pp, va, use_evac & ~use_swap)
+    _, n1w, _, n2w, ok_w, is_lead = _swap_plan(d.swap, m, pp, pa, va, pb, vb)
+    olda = (va.assign, va.leader, va.disk)
+    newa = _pick(use_swap, n1w, new_s)
+    oldb = _inert(use_swap, (vb.assign, vb.leader, vb.disk))
+    newb = _inert(use_swap, n2w)
+    feasible = torch.where(use_swap, ok_w, feas_s)
+    delta = swap_scorer(state, chains, va, olda, newa, vb, oldb, newb)
+    accept = feasible & lex_accept(state.cost_vec, delta.cost_vec, hard_arr, weights, temperature, d.u_acc)
+    apply_swap(
+        state, m, chains, pa, va, olda, newa, pb, vb, oldb, newb, delta, accept,
+        group=group, active2=use_swap,
+    )
+    kind = torch.where(use_swap, torch.where(is_lead, KIND_LEADERSHIP_SWAP, KIND_REPLICA_SWAP), KIND_SINGLE)
+    bump_kind_counters(state, chains, kind, 1, accept)
+
+
+@dataclasses.dataclass
+class BatchedDraws:
+    """Draws of one batched step: C chains x K proposals. Per-proposal
+    fields are flattened chain-major (row ``c * K + k``); ``pool_a``/``pool_b``
+    are the endpoint pools (pool slot 0 is the uniform draw, and slot 0 of
+    ``pool_a`` doubles as the single move's partition)."""
+
+    u_sel: torch.Tensor      # float32[C*K] swap if < the step's swap share
+    part: PartitionDraws     # [C*K] single-move partitions
+    pool_a: torch.Tensor     # int[C*K, pool] in [0, p_real)
+    pool_b: torch.Tensor     # int[C*K, pool]
+    u_lead: torch.Tensor     # float32[C*K] leadership rotation if < p_lead_swap
+    u_cpl: torch.Tensor      # float32[C*K] coupled endpoints if < p_couple
+    u_ga: torch.Tensor       # float32[C*K, pool] in [1e-12, 1): Gumbel noise of pick a
+    u_gb: torch.Tensor       # float32[C*K, pool]
+    single: SingleDraws      # [C*K]
+    swap: SwapDraws          # [C*K]
+    u_acc: torch.Tensor      # float32[C*K] in [1e-12, 1): Metropolis uniform
+
+
+def couple_pool_size(pp: ProposalParams) -> int:
+    """Endpoint pool size of the batched engine (1 without coupling)."""
+    return max(int(pp.couple_pool), 1) if pp.p_couple > 0.0 else 1
+
+
+def draw_batched(
+    gen: torch.Generator, C: int, K: int, m: TensorClusterModel, pp: ProposalParams, n_evac: int
+) -> BatchedDraws:
+    dev = m.device
+    N, pool = C * K, couple_pool_size(pp)
+    return BatchedDraws(
+        u_sel=_uniform(gen, (N,), dev),
+        part=draw_partitions(gen, N, pp, n_evac, dev),
+        pool_a=torch.randint(0, pp.p_real, (N, pool), generator=gen, device=dev),
+        pool_b=torch.randint(0, pp.p_real, (N, pool), generator=gen, device=dev),
+        u_lead=_uniform(gen, (N,), dev),
+        u_cpl=_uniform(gen, (N,), dev),
+        u_ga=_uniform(gen, (N, pool), dev, 1e-12),
+        u_gb=_uniform(gen, (N, pool), dev, 1e-12),
+        single=draw_single(gen, N, m, pp),
+        swap=draw_swap(gen, N, m),
+        u_acc=_uniform(gen, (N,), dev, 1e-12),
+    )
+
+
+def broker_masks(touched: torch.Tensor, B: int) -> torch.Tensor:
+    """bool[N, B] — which brokers each candidate's rows ``touched[N, n]``
+    touch (negative ids dropped)."""
+    ok = touched >= 0
+    mask = torch.zeros(touched.shape[0], B + 1, dtype=torch.int32, device=touched.device)
+    mask.scatter_add_(1, torch.where(ok, touched, B).long(), ok.int())
+    return mask[:, :B] > 0
+
+
+def _pool_scores(vp: PartitionView, chain: torch.Tensor, press, over: bool, m, sdt):
+    """Coupled endpoint quality of pool views ``vp`` (chain ``chain``):
+    (replica-swap logit, leadership-rotation logit, best slot). Endpoint a
+    (``over``) wants a hot replica on an over-band broker, endpoint b a cool
+    one on an under-band broker; a rotation endpoint is the leader broker's
+    leader-bytes pressure times the leader's bytes in."""
+    B, R = m.B, m.R
+    uw = usage_weights(m.device)
+    b = vp.assign.clamp(0, B - 1).long()
+    c = chain.long()[:, None]
+    ok = (vp.assign >= 0) & vp.pvalid[:, None] & ~vp.immovable[:, None]
+    is_l = torch.arange(R, device=m.device)[None, :] == vp.leader[:, None]
+    u = torch.where(is_l, (vp.lead_load @ uw)[:, None], (vp.foll_load @ uw)[:, None]).to(sdt)
+    if over:
+        sc = press.usage_over[c, b].to(sdt) * u * ok
+    else:
+        sc = press.usage_under[c, b].to(sdt) * (1.0 / (1.0 + u)) * ok
+    slot = sc.argmax(1).int()
+    rs_logit = torch.log(sc.amax(1).float() + 1e-12)
+    lsafe = vp.leader.clamp(0, R - 1).long()[:, None]
+    lb = b.gather(1, lsafe)[:, 0]
+    has_lead = vp.pvalid & (vp.assign.gather(1, lsafe)[:, 0] >= 0)
+    lbytes = vp.lead_load[:, Resource.NW_IN].to(sdt)
+    if over:
+        lsc = press.lbi_over[chain.long(), lb].to(sdt) * lbytes
+    else:
+        lsc = press.lbi_under[chain.long(), lb].to(sdt) * (1.0 / (1.0 + lbytes))
+    lsc = torch.where(has_lead, lsc.float(), 0.0)
+    return rs_logit, torch.log(lsc + 1e-12), slot
+
+
+def _lex_not_worse(vec: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """bool[...] — ``vec`` is not lexicographically worse than ``ref``
+    (per-goal tolerance)."""
+    d = vec - ref
+    sig = d.abs() > goal_tols(ref)
+    first = sig.int().argmax(-1, keepdim=True)
+    return ~(sig.any(-1) & (d.gather(-1, first)[..., 0] > 0))
+
+
+def _anneal_step_batched(
+    state: SearchState,
+    d: BatchedDraws,
+    temperature: float,
+    swap_share: float,
+    evac: torch.Tensor,
+    n_evac: int,
+    *,
+    m: TensorClusterModel,
+    pp: ProposalParams,
+    hard_arr: torch.Tensor,
+    weights: torch.Tensor,
+    moves_per_step: int,
+    swap_scorer,
+    vector_fn,
+    group,
+    cfg: GoalConfig,
+) -> None:
+    """``moves_per_step`` proposals per chain, drawn, scored and accepted
+    against the step's base state, then applied as a disjoint batch.
+
+    Candidates whose touched brokers or topics overlap an earlier accepted
+    one (in draw order) are dropped; disjointness makes every
+    sum-decomposable goal term exactly additive, and the selected subset is
+    composed in one weighted scatter. The composed vector is recomputed
+    exactly, and the batch is kept only if it raises no hard goal and is
+    lexicographically no worse than the base (a descent) or than the base
+    plus the members' own deltas (the exploration each member's Metropolis
+    test sanctioned): a deterministic guard against the couplings that are
+    not sums (leader evenness, the TRD normalizer)."""
+    C, K = state.n_chains, moves_per_step
+    N = C * K
+    B, T, R = m.B, m.num_topics, m.R
+    dev = m.device
+    chain = torch.arange(C, device=dev).repeat_interleave(K)
+    use_swap = d.u_sel < swap_share
+    p_single, use_evac = _draw_partition(d.part, pp, evac, n_evac)
+    use_evac = use_evac & ~use_swap
+    pool = d.pool_a.shape[1]
+    pool_a = torch.cat([torch.where(use_swap, d.pool_a[:, 0].long(), p_single)[:, None],
+                        d.pool_a[:, 1:].long()], dim=1)
+    pool_b = d.pool_b.long()
+    if pp.p_lead_swap > 0:
+        use_lead = d.u_lead < pp.p_lead_swap
+    else:
+        use_lead = torch.zeros(N, dtype=torch.bool, device=dev)
+    couple_on = pp.p_couple > 0.0
+    use_couple = (d.u_cpl < pp.p_couple) & use_swap if couple_on else torch.zeros_like(use_swap)
+
+    # one stacked gather of all 2 * N * pool endpoint views
+    chain_pool = chain.repeat_interleave(pool)
+    views = gather_views(
+        state, m, torch.cat([chain_pool, chain_pool]),
+        torch.cat([pool_a.reshape(-1), pool_b.reshape(-1)]),
+    )
+    rows = torch.arange(N, device=dev)
+    if couple_on:
+        press = broker_pressure(m, state.agg, cfg)
+        sdt = scoring_dtype(pp.bf16)
+        vpa = view_rows(views, slice(0, N * pool))
+        vpb = view_rows(views, slice(N * pool, 2 * N * pool))
+        rs_a, ls_a, slot_a = _pool_scores(vpa, chain_pool, press, True, m, sdt)
+        rs_b, ls_b, slot_b = _pool_scores(vpb, chain_pool, press, False, m, sdt)
+
+        def gumbel_pick(rs, ls, u):
+            logit = torch.where(use_lead[:, None], ls.view(N, pool), rs.view(N, pool))
+            return torch.where(use_couple, (logit + _gumbel(u)).argmax(1), 0)
+
+        sel_a = gumbel_pick(rs_a, ls_a, d.u_ga)
+        sel_b = gumbel_pick(rs_b, ls_b, d.u_gb)
+        r1_c = slot_a.view(N, pool)[rows, sel_a]
+        r2_c = slot_b.view(N, pool)[rows, sel_b]
+    else:
+        sel_a = sel_b = torch.zeros(N, dtype=torch.long, device=dev)
+        r1_c = r2_c = torch.zeros(N, dtype=torch.int32, device=dev)
+    va = view_rows(views, rows * pool + sel_a)
+    vb = view_rows(views, N * pool + rows * pool + sel_b)
+    pa = pool_a[rows, sel_a]
+    pb = pool_b[rows, sel_b]
+
+    _, new_s, feas_s = _single_plan(d.single, state, chain, m, pp, va, use_evac)
+    _, n1w, _, n2w, ok_w, _ = _swap_plan(
+        d.swap, m, pp, pa, va, pb, vb,
+        use_lead=use_lead if pp.p_lead_swap > 0 else None,
+        couple=(use_couple & ~use_lead, r1_c, r2_c),
+    )
+    olda = (va.assign, va.leader, va.disk)
+    newa = _pick(use_swap, n1w, new_s)
+    oldb = _inert(use_swap, (vb.assign, vb.leader, vb.disk))
+    newb = _inert(use_swap, n2w)
+    feas = torch.where(use_swap, ok_w, feas_s)
+    deltas = swap_scorer(state, chain, va, olda, newa, vb, oldb, newb)
+    base = state.cost_vec
+    accept = feas & lex_accept(base[chain], deltas.cost_vec, hard_arr, weights, temperature, d.u_acc)
+
+    # --- disjoint selection in draw order --------------------------------
+    bmask = broker_masks(torch.cat([olda[0], newa[0], oldb[0], newb[0]], dim=1), B).view(C, K, B)
+    ta = va.topic.long().clamp(0, T - 1).view(C, K)
+    tb = vb.topic.long().clamp(0, T - 1).view(C, K)
+    acc_ck, sw_ck = accept.view(C, K), use_swap.view(C, K)
+    used_b = torch.zeros(C, B, dtype=torch.bool, device=dev)
+    used_t = torch.zeros(C, T, dtype=torch.bool, device=dev)
+    take = torch.zeros(C, K, dtype=torch.bool, device=dev)
+    crow = torch.arange(C, device=dev)
+    for k in range(K):
+        conf = (
+            (bmask[:, k] & used_b).any(1)
+            | used_t[crow, ta[:, k]]
+            | (sw_ck[:, k] & used_t[crow, tb[:, k]])
+        )
+        take_k = acc_ck[:, k] & ~conf
+        take[:, k] = take_k
+        used_b |= bmask[:, k] & take_k[:, None]
+        used_t[crow, ta[:, k]] |= take_k
+        used_t[crow, tb[:, k]] |= take_k & sw_ck[:, k]
+
+    # --- exact composition of the selected subset: one weighted scatter --
+    tk = take.view(N)
+    w, wi = tk.float(), tk.int()
+    agg = _take_rows(state.agg, crow)
+    scatter_partition(
+        agg, m, torch.cat([chain] * 4), cat_views(va, va, vb, vb),
+        *(torch.cat(x) for x in zip(olda, newa, oldb, newb)),
+        torch.cat([-w, w, -w, w]), torch.cat([-wi, wi, -wi, wi]),
+    )
+    part = state.part_sums.index_add(0, chain, w[:, None] * (deltas.part_sums - state.part_sums[chain]))
+    mtl = state.mtl_sum.index_add(0, chain, w * deltas.d_mtl)
+    trd = state.trd_sum.index_add(0, chain, w * deltas.d_trd)
+    totals = state.topic_totals.index_put(
+        (torch.cat([chain, chain]), torch.cat([va.topic, vb.topic]).long()),
+        torch.cat([w * deltas.d_total, w * deltas.d_total2]), accumulate=True,
+    )
+    cost_vec = vector_fn(agg, part, mtl, trd, tt.trd_normalizer(m, totals))
+
+    # --- the deterministic batch guard -----------------------------------
+    dd = cost_vec - base
+    hard_regressed = ((dd.abs() > goal_tols(base)) & hard_arr & (dd > 0)).any(1)
+    G = base.shape[1]
+    predicted = base + torch.where(
+        take[..., None], deltas.cost_vec.view(C, K, G) - base[:, None, :], 0.0
+    ).sum(1)
+    batch_ok = ~hard_regressed & (_lex_not_worse(cost_vec, base) | _lex_not_worse(cost_vec, predicted))
+
+    def keep(new: torch.Tensor, old: torch.Tensor) -> None:
+        old.copy_(torch.where(batch_ok.view(C, *([1] * (old.dim() - 1))), new, old))
+
+    for f in BROKER_FIELDS:
+        keep(getattr(agg, f), getattr(state.agg, f))
+    keep(part, state.part_sums)
+    keep(mtl, state.mtl_sum)
+    keep(trd, state.trd_sum)
+    keep(totals, state.topic_totals)
+    keep(cost_vec, state.cost_vec)
+    state.n_accepted += torch.where(batch_ok, take.sum(1).int(), 0)
+    write_a = tk & batch_ok[chain]
+    write_b = write_a & use_swap
+    _placement_updates(
+        state, group, torch.cat([chain, chain]), torch.cat([pa, pb]),
+        torch.cat([va.topic, vb.topic]),
+        write=torch.cat([write_a, write_b]),
+        mirror=torch.cat([write_a & va.pvalid, write_b & vb.pvalid]),
+        rows=torch.cat([newa[0], newb[0]]),
+        leads=torch.cat([newa[1], newb[1]]),
+        disks=torch.cat([newa[2], newb[2]]),
+    )
+    kind = torch.where(use_swap, torch.where(use_lead, KIND_LEADERSHIP_SWAP, KIND_REPLICA_SWAP), KIND_SINGLE)
+    bump_kind_counters(state, chain, kind, 1, write_a)
+
+
 def best_chain_index(cost_vecs: np.ndarray) -> int:
     """Lexicographic argmin across chains (host side, tiny array)."""
     order = sorted(range(cost_vecs.shape[0]), key=lambda i: tuple(cost_vecs[i]))
@@ -454,6 +1020,69 @@ def real_sizes(m: TensorClusterModel) -> tuple[int, int]:
     p_real = int(m.partition_valid.sum())
     bv = torch.nonzero(m.broker_valid)
     return p_real, (int(bv.max()) + 1) if bv.numel() else 0
+
+
+def _swap_ramp_of(opts: AnnealOptions, n: int) -> float:
+    """Per-step change of the swap share (0.0 when ``p_swap_end < 0``)."""
+    if opts.p_swap_end < 0:
+        return 0.0
+    return (opts.p_swap_end - opts.p_swap) / max(n - 1, 1)
+
+
+def step_engine(opts: AnnealOptions, pp: ProposalParams, R: int, schedule_on: bool) -> str:
+    """The SA step engine, chosen as the JAX package chooses it: the batched
+    step needs swaps in the mix, several moves per step and room for a
+    disjoint batch (each move touches about 2R brokers, so below
+    ``4 * R * moves`` brokers most of a batch would conflict)."""
+    swaps = pp.p_swap > 0.0 or schedule_on
+    if opts.batched and opts.moves_per_step > 1 and swaps and pp.b_real >= 4 * R * opts.moves_per_step:
+        return "batched"
+    return "sequential" if swaps else "single"
+
+
+def proposal_params(
+    opts: AnnealOptions, goal_names: tuple[str, ...], cfg: GoalConfig, p_real: int, b_real: int
+) -> ProposalParams:
+    """The proposal knobs of an SA run."""
+    allow_inter = allows_inter_broker(goal_names)
+    return ProposalParams(
+        p_real=p_real,
+        b_real=b_real,
+        p_leadership=opts.p_leadership,
+        p_disk=opts.p_disk,
+        p_biased_dest=opts.p_biased_dest,
+        p_evac=opts.p_evac,
+        target_rack=bool(RACK_TARGET_GOALS & set(goal_names)),
+        allow_inter=allow_inter,
+        p_swap=opts.p_swap if allow_inter else 0.0,
+        target_capacity=bool(CAPACITY_GOALS & set(goal_names)),
+        cap_thresholds=tuple(cfg.capacity_threshold),
+        p_lead_swap=lead_swap_share(opts.p_leadership),
+        p_couple=opts.swap_coupling if allow_inter else 0.0,
+        couple_pool=opts.couple_pool,
+        bf16=opts.bf16_scoring,
+    )
+
+
+def step_kwargs(
+    m: TensorClusterModel, cfg: GoalConfig, goal_names: tuple[str, ...], pp: ProposalParams,
+    engine: str, moves: int, group,
+) -> dict:
+    """The keyword arguments of ``engine``'s step function."""
+    hard_mask = tuple(GOAL_REGISTRY[n].hard for n in goal_names)
+    kw = dict(
+        m=m, pp=pp,
+        hard_arr=torch.tensor(hard_mask, device=m.device),
+        weights=soft_weights(hard_mask, m.device),
+        group=group,
+    )
+    if engine == "single":
+        kw.update(moves_per_step=moves, scorer=make_move_scorer(m, goal_names, cfg))
+    else:
+        kw.update(swap_scorer=make_swap_scorer(m, goal_names, cfg))
+    if engine == "batched":
+        kw.update(moves_per_step=moves, vector_fn=make_cost_vector_fn(m, goal_names, cfg), cfg=cfg)
+    return kw
 
 
 def anneal(
@@ -470,43 +1099,36 @@ def anneal(
     near zero; the winner is the lexicographic argmin of the cost vectors.
     The returned stack scores are re-evaluated from scratch. ``evac`` is an
     optional precomputed ``hot_partition_list``."""
-    if opts.p_swap > 0 and allows_inter_broker(goal_names):
-        raise NotImplementedError("the two-partition swap move class is not ported; set p_swap=0")
     stack_before = evaluate_stack(m, cfg, goal_names)
     p_real, b_real = real_sizes(m)
     evac_idx, n_evac = evac if evac is not None else hot_partition_list(m, goal_names, cfg)
     group = (
         make_topic_group(m, max_partitions_per_topic(m)) if stack_needs_topic(goal_names) else None
     )
-    hard_mask = tuple(GOAL_REGISTRY[n].hard for n in goal_names)
-    allow_inter = allows_inter_broker(goal_names)
-    pp = ProposalParams(
-        p_real=p_real,
-        b_real=b_real,
-        p_leadership=opts.p_leadership,
-        p_disk=opts.p_disk,
-        p_biased_dest=opts.p_biased_dest,
-        p_evac=opts.p_evac,
-        target_rack=bool(RACK_TARGET_GOALS & set(goal_names)),
-        allow_inter=allow_inter,
-        target_capacity=bool(CAPACITY_GOALS & set(goal_names)),
-        cap_thresholds=tuple(cfg.capacity_threshold),
-    )
+    pp = proposal_params(opts, goal_names, cfg, p_real, b_real)
     state = init_search_state(m, cfg, goal_names, group=group, n_chains=opts.n_chains)
     gen = torch.Generator(device=m.device)
     gen.manual_seed(opts.seed)
     n = max(opts.n_steps, 1)
     decay = (opts.t1 / opts.t0) ** (1.0 / max(n - 1, 1))
-    step_kw = dict(
-        m=m, pp=pp,
-        hard_arr=torch.tensor(hard_mask, device=m.device),
-        weights=soft_weights(hard_mask, m.device),
-        moves_per_step=max(opts.moves_per_step, 1),
-        scorer=make_move_scorer(m, goal_names, cfg),
-        group=group,
-    )
+    ramp = _swap_ramp_of(opts, n)
+    schedule_on = pp.allow_inter and opts.p_swap_end >= 0
+    engine = step_engine(opts, pp, m.R, schedule_on)
+    moves = max(opts.moves_per_step, 1)
+    C = opts.n_chains
+    kw = step_kwargs(m, cfg, goal_names, pp, engine, moves, group)
     for t in range(opts.n_steps):
-        _anneal_step(state, gen, opts.t0 * decay**t, evac_idx, n_evac, **step_kw)
+        temperature = opts.t0 * decay**t
+        share = pp.p_swap + ramp * t
+        if engine == "single":
+            _anneal_step(state, gen, temperature, evac_idx, n_evac, **kw)
+        elif engine == "batched":
+            d = draw_batched(gen, C, moves, m, pp, n_evac)
+            _anneal_step_batched(state, d, temperature, share, evac_idx, n_evac, **kw)
+        else:
+            for _ in range(moves):
+                d = draw_unified(gen, C, m, pp, n_evac)
+                _unified_move(state, d, temperature, share, evac_idx, n_evac, **kw)
 
     best = best_chain_index(state.cost_vec.cpu().numpy())
     result_model = with_placement(m, state, best)
@@ -520,4 +1142,5 @@ def anneal(
         best_chain=best,
         n_prop_kind=tuple(state.n_prop_kind[best].tolist()),
         n_acc_kind=tuple(state.n_acc_kind[best].tolist()),
+        engine=engine,
     )

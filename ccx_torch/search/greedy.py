@@ -9,8 +9,15 @@ subset of the improving, hard-safe ones (disjoint partitions, topics and
 touched brokers make every per-broker, per-topic and per-partition term
 exactly additive), re-checks the composed batch exactly, applies it, and
 stops after ``patience`` consecutive iterations without an improving
-candidate. Candidates are single moves: the two-partition swap class is
-not ported.
+candidate.
+
+``swap_polish`` is the count-preserving descent: each iteration ranks every
+partition by broker band pressure times replica usage, draws hot/cold
+replica-swap pairs and coupled leadership transfers by Gumbel top-k, scores
+them exactly with the swap scorer and applies the best disjoint subset.
+Both descents share one pair-candidate core (``_select_disjoint``,
+``_compose_pairs``, ``_apply_pairs``): a single move is a pair whose b side
+is inert (rows -1).
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ import dataclasses
 
 import torch
 
+from ccx_torch.common.resources import Resource
 from ccx_torch.goals import topic_terms as tt
 from ccx_torch.goals.base import GOAL_REGISTRY, GoalConfig
 from ccx_torch.goals.stack import DEFAULT_GOAL_ORDER, StackResult, evaluate_stack
@@ -28,9 +36,15 @@ from ccx_torch.search.annealer import (
     CAPACITY_GOALS,
     RACK_TARGET_GOALS,
     ProposalParams,
+    _at,
     _draw_partition,
+    _gumbel,
+    _inert,
     _single_plan,
+    _slot_mask,
+    _uniform,
     allows_inter_broker,
+    broker_masks,
     draw_partitions,
     draw_single,
     goal_tols,
@@ -39,17 +53,22 @@ from ccx_torch.search.annealer import (
 )
 from ccx_torch.search.state import (
     KIND_SINGLE,
+    PartitionView,
     SearchState,
     _placement_updates,
+    broker_pressure,
     bump_kind_counters,
     gather_views,
     init_search_state,
     make_cost_vector_fn,
     make_move_scorer,
+    make_swap_scorer,
     make_topic_group,
     max_partitions_per_topic,
     scatter_partition,
     stack_needs_topic,
+    usage_weights,
+    view_rows,
     with_placement,
 )
 
@@ -103,11 +122,13 @@ def _lex_argmin(costs: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return alive.int().argmax()
 
 
-def _select_disjoint(cost_vec, better, bmask, ta, n_batch, T):
+def _select_disjoint(cost_vec, better, bmask, ta, tb, dual, n_batch, T):
     """Greedily take the lexicographically best remaining candidate whose
-    partition topic and touched brokers are disjoint from everything already
-    taken. Returns int64[n_batch] with N as the not-taken sentinel; slot 0
-    holds the lex-best improving candidate."""
+    topics and touched brokers are disjoint from everything already taken.
+    ``ta``/``tb`` are the two sides' topics; ``dual[i]`` marks candidates
+    whose b side is real (None when no candidate has one). Returns
+    int64[n_batch] with N as the not-taken sentinel; slot 0 holds the
+    lex-best improving candidate."""
     N, B = bmask.shape
     dev = bmask.device
     alive = better.clone()
@@ -116,51 +137,71 @@ def _select_disjoint(cost_vec, better, bmask, ta, n_batch, T):
     sel = torch.full((n_batch,), N, dtype=torch.long, device=dev)
     ids = torch.arange(N, device=dev)
     for k in range(n_batch):
-        ok = alive & ~((bmask & used_b[None, :]).any(1) | used_t[ta])
+        conf = (bmask & used_b[None, :]).any(1) | used_t[ta]
+        if dual is not None:
+            conf |= dual & used_t[tb]
+        ok = alive & ~conf
         any_ok = ok.any()
         idx = _lex_argmin(cost_vec, ok)
         sel[k] = torch.where(any_ok, idx, N)
         used_b |= bmask[idx] & any_ok
         used_t[ta[idx]] |= any_ok
+        if dual is not None:
+            used_t[tb[idx]] |= any_ok & dual[idx]
         alive &= ids != idx
     return sel
 
 
-def _broker_masks(touched: torch.Tensor, N: int, B: int) -> torch.Tensor:
-    """bool[N, B] — which brokers each candidate touches (negative ids
-    dropped)."""
-    ok = touched >= 0
-    mask = torch.zeros(N, B + 1, dtype=torch.int32, device=touched.device)
-    mask.scatter_add_(1, torch.where(ok, touched, B).long(), ok.int())
-    return mask[:, :B] > 0
+@dataclasses.dataclass
+class Pairs:
+    """N pair candidates on chain 0: the a side's and (where ``has_pairs``)
+    the b side's partition, view, old and new rows, and their scores."""
+
+    pa: torch.Tensor
+    va: PartitionView
+    olda: tuple
+    newa: tuple
+    deltas: object           # MoveDelta, or SwapDelta with pairs
+    pb: torch.Tensor | None = None
+    vb: PartitionView | None = None
+    oldb: tuple | None = None
+    newb: tuple | None = None
+
+    @property
+    def has_pairs(self) -> bool:
+        return self.vb is not None
 
 
-def _compose_pairs(ss: SearchState, m, view, old, new, deltas, sel, vector_fn, guard_on, guard_cols):
+def _compose_pairs(ss: SearchState, m, c: Pairs, sel, vector_fn, guard_on, guard_cols):
     """Exact composition of the selected disjoint candidates onto chain 0.
 
     Disjointness makes sum-decomposable terms additive, but the leader
     evenness and the TRD normalizer are not, so the composed vector is
     recomputed exactly; when it is not lex-better than the iteration's base
     (or trips the TRD guard) only the best single candidate (slot 0) is
-    taken. Returns (indices of the applied candidates, composed fields)."""
+    taken. Returns (indices of the applied candidates, composed fields,
+    cost vector)."""
     dev = sel.device
+    deltas = c.deltas
 
     def compose(take):
         k = take.numel()
         agg = ss.agg.replace(**{f: getattr(ss.agg, f)[:1].clone() for f in BROKER_FIELDS})
-        v = dataclasses.replace(view, **{
-            f.name: getattr(view, f.name)[take] for f in dataclasses.fields(view)
-        })
         zeros = torch.zeros(k, dtype=torch.long, device=dev)
         one_f = torch.ones(k, device=dev)
         one_i = torch.ones(k, dtype=torch.int32, device=dev)
-        scatter_partition(agg, m, zeros, v, *(x[take] for x in old), -one_f, -one_i)
-        scatter_partition(agg, m, zeros, v, *(x[take] for x in new), one_f, one_i)
+        sides = [(view_rows(c.va, take), c.olda, c.newa)]
+        if c.has_pairs:
+            sides.append((view_rows(c.vb, take), c.oldb, c.newb))
+        totals = ss.topic_totals[:1].clone()
+        for i, (v, old, new) in enumerate(sides):
+            scatter_partition(agg, m, zeros, v, *(x[take] for x in old), -one_f, -one_i)
+            scatter_partition(agg, m, zeros, v, *(x[take] for x in new), one_f, one_i)
+            d_tot = deltas.d_total2 if i else deltas.d_total
+            totals.index_put_((zeros, v.topic.long()), d_tot[take], accumulate=True)
         part = ss.part_sums[0] + (deltas.part_sums[take] - ss.part_sums[0]).sum(0)
         mtl = ss.mtl_sum[0] + deltas.d_mtl[take].sum()
         trd = ss.trd_sum[0] + deltas.d_trd[take].sum()
-        totals = ss.topic_totals[:1].clone()
-        totals.index_put_((zeros, v.topic.long()), deltas.d_total[take], accumulate=True)
         return agg, part, mtl, trd, totals
 
     full = compose(sel)
@@ -179,8 +220,9 @@ def _compose_pairs(ss: SearchState, m, view, old, new, deltas, sel, vector_fn, g
     return first, compose(first), deltas.cost_vec[sel[0]]
 
 
-def _apply_pairs(ss: SearchState, group, ps, view, new, take, composed, cost_vec) -> None:
-    """Write the composed accumulators and the taken placements into chain 0."""
+def _apply_pairs(ss: SearchState, group, c: Pairs, take, composed, cost_vec, dual) -> None:
+    """Write the composed accumulators and the taken placements into chain
+    0; b sides are written where ``dual`` (None: no b sides)."""
     agg, part, mtl, trd, totals = composed
     for f in BROKER_FIELDS:
         getattr(ss.agg, f)[:1] = getattr(agg, f)
@@ -190,11 +232,48 @@ def _apply_pairs(ss: SearchState, group, ps, view, new, take, composed, cost_vec
     ss.topic_totals[:1] = totals
     ss.cost_vec[0] = cost_vec
     ss.n_accepted[0] += take.numel()
-    chain = torch.zeros_like(take)
+    sides = [(c.pa, view_rows(c.va, take), c.newa, torch.ones_like(take, dtype=torch.bool))]
+    if dual is not None:
+        sides.append((c.pb, view_rows(c.vb, take), c.newb, dual[take]))
+    write = torch.cat([w for *_, w in sides])
     _placement_updates(
-        ss, group, chain, ps[take], view.topic[take], view.pvalid[take],
-        rows=new[0][take], leads=new[1][take], disks=new[2][take],
+        ss, group, torch.zeros_like(write, dtype=torch.long),
+        torch.cat([p[take] for p, *_ in sides]), torch.cat([v.topic for _, v, _, _ in sides]),
+        write=write, mirror=write & torch.cat([v.pvalid for _, v, _, _ in sides]),
+        rows=torch.cat([new[0][take] for _, _, new, _ in sides]),
+        leads=torch.cat([new[1][take] for _, _, new, _ in sides]),
+        disks=torch.cat([new[2][take] for _, _, new, _ in sides]),
     )
+
+
+def _descend(ss, m, group, c: Pairs, feas, hard_arr, guard_on, guard_cols, vector_fn,
+             n_batch, dual):
+    """One descent iteration's selection and application: the improving,
+    hard-safe (optionally TRD-guarded) candidates, their best disjoint
+    subset composed exactly and applied. Returns the indices applied (None
+    when no candidate improves)."""
+    cur = ss.cost_vec[0]
+    d_all = c.deltas.cost_vec - cur[None, :]
+    sig_all = d_all.abs() > goal_tols(cur)[None, :]
+    hard_up = (sig_all & hard_arr & (d_all > 0)).any(1)
+    better = feas & ~hard_up & _lex_lt_batch(c.deltas.cost_vec, cur)
+    if guard_on:
+        better &= ~(sig_all & guard_cols & (d_all > 0)).any(1)
+    if not bool(better.any()):
+        return None
+    rows = [c.olda[0], c.newa[0]]
+    if c.has_pairs:
+        rows += [c.oldb[0], c.newb[0]]
+    N = better.shape[0]
+    bmask = broker_masks(torch.cat(rows, dim=1), m.B)
+    T = m.num_topics
+    ta = c.va.topic.long().clamp(0, T - 1)
+    tb = c.vb.topic.long().clamp(0, T - 1) if c.has_pairs else None
+    sel = _select_disjoint(c.deltas.cost_vec, better, bmask, ta, tb, dual, n_batch, T)
+    sel = sel[sel < N]
+    take, composed, cost_vec = _compose_pairs(ss, m, c, sel, vector_fn, guard_on, guard_cols)
+    _apply_pairs(ss, group, c, take, composed, cost_vec, dual)
+    return take
 
 
 def greedy_optimize(
@@ -251,37 +330,257 @@ def greedy_optimize(
         view = gather_views(ss, m, chain, ps)
         old, new, feas = _single_plan(draw_single(gen, N, m, pp), ss, chain, m, pp, view, use_evac)
         deltas = scorer(ss, chain, view, old, new)
-        # hard-safety veto on top of lex improvement: every member of a
-        # batch must leave every hard goal no worse
-        cur = ss.cost_vec[0]
-        d_all = deltas.cost_vec - cur[None, :]
-        sig_all = d_all.abs() > goal_tols(cur)[None, :]
-        hard_up = (sig_all & hard_arr & (d_all > 0)).any(1)
-        better = feas & ~hard_up & _lex_lt_batch(deltas.cost_vec, cur)
-        if trd_guard:
-            better &= ~(sig_all & guard_cols & (d_all > 0)).any(1)
-        n_prop = N
-        if bool(better.any()):
-            bmask = _broker_masks(torch.cat([old[0], new[0]], dim=1), N, m.B)
-            ta = view.topic.long().clamp(0, m.num_topics - 1)
-            sel = _select_disjoint(deltas.cost_vec, better, bmask, ta, n_batch, m.num_topics)
-            sel = sel[sel < N]
-            take, composed, cost_vec = _compose_pairs(
-                ss, m, view, old, new, deltas, sel, vector_fn, trd_guard, guard_cols
-            )
-            _apply_pairs(ss, group, ps, view, new, take, composed, cost_vec)
-            moves += take.numel()
-            n_acc = take.numel()
-            stale = 0
-        else:
-            n_acc = 0
-            stale += 1
+        take = _descend(
+            ss, m, group, Pairs(pa=ps, va=view, olda=old, newa=new, deltas=deltas), feas,
+            hard_arr, trd_guard, guard_cols, vector_fn, n_batch, dual=None,
+        )
+        n_acc = 0 if take is None else take.numel()
+        moves += n_acc
+        stale = stale + 1 if take is None else 0
         bump_kind_counters(
-            ss, chain[:1], KIND_SINGLE, n_prop,
+            ss, chain[:1], KIND_SINGLE, N,
             torch.full((1,), n_acc, dtype=torch.int32, device=dev),
         )
         it += 1
 
+    result_model = with_placement(m, ss)
+    return GreedyResult(
+        model=result_model,
+        stack_before=stack_before,
+        stack_after=evaluate_stack(result_model, cfg, goal_names),
+        n_moves=moves,
+        n_iters=it,
+        n_prop_kind=tuple(ss.n_prop_kind[0].tolist()),
+        n_acc_kind=tuple(ss.n_acc_kind[0].tolist()),
+    )
+
+
+# --------------------------------------------------------------------------
+# Usage-coupled swap polish: the count-preserving descent
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SwapPolishOptions:
+    #: coupled replica-swap pairs proposed per iteration
+    n_swap_candidates: int = 64
+    #: coupled leadership transfers proposed per iteration
+    n_lead_candidates: int = 64
+    max_iters: int = 200
+    #: stop after this many consecutive iterations with no improving candidate
+    patience: int = 10
+    #: disjoint candidates applied per iteration (lex-best first)
+    batch_moves: int = 16
+    #: veto candidates that significantly worsen TopicReplicaDistribution
+    trd_guard: bool = True
+    #: iterations per chunk of the JAX package's chunked descent; accepted
+    #: for equal options, while one loop runs here (chunked and monolithic
+    #: descents give the same result)
+    chunk_iters: int = 50
+    seed: int = 0
+
+
+@dataclasses.dataclass
+class SwapPolishDraws:
+    """Draws of one swap-polish iteration: Gumbel noise of the three top-k
+    picks over the partitions and of the candidates' new disks."""
+
+    u_hot: torch.Tensor      # float32[P] in [1e-12, 1)
+    u_cold: torch.Tensor     # float32[P]
+    u_lead: torch.Tensor     # float32[P]
+    u_disk: torch.Tensor     # float32[N, 2, D]
+
+
+def draw_swap_polish(gen: torch.Generator, m: TensorClusterModel, n: int) -> SwapPolishDraws:
+    dev = m.device
+    return SwapPolishDraws(
+        u_hot=_uniform(gen, (m.P,), dev, 1e-12),
+        u_cold=_uniform(gen, (m.P,), dev, 1e-12),
+        u_lead=_uniform(gen, (m.P,), dev, 1e-12),
+        u_disk=_uniform(gen, (n, 2, m.D), dev, 1e-12),
+    )
+
+
+class SwapPolishIteration:
+    """One swap-polish iteration on a single-chain state: the candidate
+    budget, the model's static per-partition usage and the scorers, built
+    once per run."""
+
+    def __init__(self, m, cfg, goal_names, opts: SwapPolishOptions):
+        self.m, self.cfg = m, cfg
+        dev = m.device
+        P = m.P
+        self.k_sw = max(min(int(opts.n_swap_candidates), P), 1)
+        self.k_ld = max(min(int(opts.n_lead_candidates), P), 0)
+        self.N = self.k_sw + self.k_ld
+        self.n_batch = max(min(opts.batch_moves, self.N), 1)
+        self.group = (
+            make_topic_group(m, max_partitions_per_topic(m)) if stack_needs_topic(goal_names) else None
+        )
+        self.swap_scorer = make_swap_scorer(m, goal_names, cfg)
+        self.vector_fn = make_cost_vector_fn(m, goal_names, cfg)
+        self.hard_arr = torch.tensor(tuple(GOAL_REGISTRY[n].hard for n in goal_names), device=dev)
+        self.guard_cols = torch.tensor(
+            tuple(n == "TopicReplicaDistributionGoal" for n in goal_names), device=dev
+        )
+        uw = usage_weights(dev)
+        self.u_lead_p = uw @ m.leader_load      # [P] combined usage, leader role
+        self.u_foll_p = uw @ m.follower_load
+        self.lbytes_p = m.leader_load[Resource.NW_IN]
+        n_valid = m.partition_valid.sum().clamp(min=1)
+        self.avg_lb = torch.where(m.partition_valid, self.lbytes_p, 0.0).sum() / n_valid
+        self.recv_ok = m.broker_ok & ~m.broker_excl_replicas
+        self.lead_allowed = m.broker_ok & ~m.broker_excl_leadership
+        self.is_swap = torch.arange(self.N, device=dev) < self.k_sw
+        # the usage a leadership transfer moves, and its damping: the count
+        # fix wants low-usage-delta leaders, which the usage tiers above
+        # LeaderReplica do not veto
+        u_delta = (self.u_lead_p - self.u_foll_p).clamp(min=0.0)
+        avg_du = torch.where(m.partition_valid, u_delta, 0.0).sum() / n_valid
+        self.damp = 1.0 / (1.0 + u_delta / avg_du.clamp(min=1e-9))
+
+    def candidates(self, ss: SearchState, d: SwapPolishDraws):
+        """(pa, pb, r1, r2) int[N]: K_sw hot/cold replica-swap pairs, then
+        K_ld leadership transfers (partner inert)."""
+        m = self.m
+        B, R, P = m.B, m.R, m.P
+        press = broker_pressure(m, ss.agg, self.cfg)
+        over, under = press.usage_over[0], press.usage_under[0]
+        a, lead_slot = ss.assignment[0], ss.leader_slot[0]
+        valid = (a >= 0) & m.partition_valid[:, None]
+        movable = valid & ~m.partition_immovable[:, None]
+        b = a.clamp(0, B - 1).long()
+        is_l = torch.arange(R, device=m.device)[None, :] == lead_slot[:, None]
+        u = torch.where(is_l, self.u_lead_p[:, None], self.u_foll_p[:, None])
+        hot_sc = over[b] * u * movable
+        cold_sc = under[b] * (1.0 / (1.0 + u)) * movable
+        hot_score, hot_slot = hot_sc.amax(1), hot_sc.argmax(1).int()
+        cold_score, cold_slot = cold_sc.amax(1), cold_sc.argmax(1).int()
+
+        # coupled leadership transfer: a leader on a leader-count or
+        # leader-bytes over broker to a follower slot on an under broker
+        lsafe = lead_slot.clamp(0, R - 1).long()
+        lb = b.gather(1, lsafe[:, None])[:, 0]
+        has_lead = valid.gather(1, lsafe[:, None])[:, 0]
+        dest_ok = movable & ~is_l & self.lead_allowed[b]
+        dest_sc = (press.lead_under[0][b] + 0.3 * press.lbi_under[0][b]) * dest_ok
+        dest_best, dest_slot = dest_sc.amax(1), dest_sc.argmax(1).int()
+        src_lr = press.lead_over[0][lb] * self.damp
+        src_lbi = press.lbi_over[0][lb] * (self.lbytes_p / self.avg_lb.clamp(min=1e-9))
+        lead_score = (src_lr + src_lbi) * dest_best * has_lead * movable[torch.arange(P, device=m.device), lsafe]
+
+        def gumbel_topk(score, k, u):
+            return torch.topk(torch.log(score + 1e-12) + _gumbel(u), k).indices
+
+        hot_ps = gumbel_topk(hot_score, self.k_sw, d.u_hot)
+        cold_ps = gumbel_topk(cold_score, self.k_sw, d.u_cold)
+        if self.k_ld:
+            lead_ps = gumbel_topk(lead_score, self.k_ld, d.u_lead)
+            pa = torch.cat([hot_ps, lead_ps])
+            pb = torch.cat([cold_ps, lead_ps])
+            r1 = torch.cat([hot_slot[hot_ps], dest_slot[lead_ps]])
+            r2 = torch.cat([cold_slot[cold_ps], torch.zeros_like(dest_slot[lead_ps])])
+        else:
+            pa, pb, r1, r2 = hot_ps, cold_ps, hot_slot[hot_ps], cold_slot[cold_ps]
+        return pa, pb, r1, r2
+
+    def plan(self, ss: SearchState, d: SwapPolishDraws, pa, pb, r1, r2) -> tuple[Pairs, torch.Tensor]:
+        """Score the candidates: (pairs, feasible bool[N])."""
+        m = self.m
+        B, R, D, N = m.B, m.R, m.D, self.N
+        views = gather_views(ss, m, torch.zeros(2 * N, dtype=torch.long, device=m.device),
+                             torch.cat([pa, pb]))
+        va, vb = view_rows(views, slice(0, N)), view_rows(views, slice(N, 2 * N))
+        r1, r2 = r1.long(), r2.long()
+        x, y = _at(va.assign, r1), _at(vb.assign, r2)
+        sx, sy = x.clamp(0, B - 1).long(), y.clamp(0, B - 1).long()
+        excl_lead = m.broker_excl_leadership
+        ok_sw = (
+            (pa != pb) & va.pvalid & vb.pvalid & ~va.immovable & ~vb.immovable
+            & (x >= 0) & (y >= 0) & (x != y) & self.recv_ok[sx] & self.recv_ok[sy]
+            & ~(va.assign == y[:, None]).any(1) & ~(vb.assign == x[:, None]).any(1)
+            & ~((r1 == va.leader) & excl_lead[sy]) & ~((r2 == vb.leader) & excl_lead[sx])
+        )
+        if D > 1:
+            gd = _gumbel(d.u_disk)
+            neg_inf = float("-inf")
+            d1 = torch.where(m.disk_alive[sy], gd[:, 0], neg_inf).argmax(1).int()
+            d2 = torch.where(m.disk_alive[sx], gd[:, 1], neg_inf).argmax(1).int()
+        else:
+            d1 = d2 = torch.zeros_like(x)
+        # the leadership transfer mirrors a single MOVE_LEADERSHIP's checks
+        ok_ld = va.pvalid & ~va.immovable & (x >= 0) & (r1 != va.leader) & self.lead_allowed[sx]
+        sw = self.is_swap
+        at1, at2 = _slot_mask(r1, R), _slot_mask(r2, R)
+        sw_rows = sw[:, None]
+        olda = (va.assign, va.leader, va.disk)
+        newa = (
+            torch.where(sw_rows & at1, y[:, None], va.assign),
+            torch.where(sw, va.leader, r1.int()),
+            torch.where(sw_rows & at1, d1[:, None], va.disk),
+        )
+        oldb = _inert(sw, (vb.assign, vb.leader, vb.disk))
+        newb = _inert(sw, (
+            torch.where(at2, x[:, None], vb.assign), vb.leader,
+            torch.where(at2, d2[:, None], vb.disk),
+        ))
+        deltas = self.swap_scorer(
+            ss, torch.zeros(N, dtype=torch.long, device=m.device), va, olda, newa, vb, oldb, newb
+        )
+        pairs = Pairs(pa=pa, va=va, olda=olda, newa=newa, deltas=deltas,
+                      pb=pb, vb=vb, oldb=oldb, newb=newb)
+        return pairs, torch.where(sw, ok_sw, ok_ld)
+
+    def __call__(self, ss: SearchState, d: SwapPolishDraws, guard_on: bool) -> int:
+        """Run one iteration in place; returns the candidates applied (0:
+        none improved)."""
+        pairs, feas = self.plan(ss, d, *self.candidates(ss, d))
+        take = _descend(
+            ss, self.m, self.group, pairs, feas, self.hard_arr, guard_on, self.guard_cols,
+            self.vector_fn, self.n_batch, dual=self.is_swap,
+        )
+        n_sw = 0 if take is None else int(self.is_swap[take].sum())
+        n_ld = 0 if take is None else take.numel() - n_sw
+        dev = self.m.device
+        # coupled leadership transfers are single moves (kind 0), the pairs
+        # replica swaps (kind 1)
+        chain = torch.zeros(3, dtype=torch.long, device=dev)
+        ss.n_prop_kind.index_put_((chain, torch.arange(3, device=dev)),
+                                  torch.tensor([self.k_ld, self.k_sw, 0], dtype=torch.int32, device=dev),
+                                  accumulate=True)
+        ss.n_acc_kind.index_put_((chain, torch.arange(3, device=dev)),
+                                 torch.tensor([n_ld, n_sw, 0], dtype=torch.int32, device=dev),
+                                 accumulate=True)
+        return n_sw + n_ld
+
+
+def swap_polish(
+    m: TensorClusterModel,
+    cfg: GoalConfig = GoalConfig(),
+    goal_names: tuple[str, ...] = DEFAULT_GOAL_ORDER,
+    opts: SwapPolishOptions = SwapPolishOptions(),
+) -> GreedyResult:
+    """Run the usage-coupled swap-polish descent to a local optimum.
+
+    Only lex-improving, hard-safe candidates are applied, so the result is
+    never lexicographically worse than the input, and every broker keeps its
+    replica count (replica swaps exchange brokers, leadership transfers move
+    no replica). Intra-broker-only stacks have no swap space."""
+    if not allows_inter_broker(goal_names):
+        raise ValueError(
+            "swap_polish proposes inter-broker swaps; intra-broker-only stacks must not run it"
+        )
+    stack_before = evaluate_stack(m, cfg, goal_names)
+    step = SwapPolishIteration(m, cfg, goal_names, opts)
+    ss = init_search_state(m, cfg, goal_names, group=step.group)
+    gen = torch.Generator(device=m.device)
+    gen.manual_seed(opts.seed + 1)
+    it = stale = moves = 0
+    while it < opts.max_iters and stale < opts.patience:
+        n = step(ss, draw_swap_polish(gen, m, step.N), opts.trd_guard)
+        moves += n
+        stale = 0 if n else stale + 1
+        it += 1
     result_model = with_placement(m, ss)
     return GreedyResult(
         model=result_model,

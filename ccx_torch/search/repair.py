@@ -10,12 +10,18 @@ and a destination on an unused rack with the most headroom
 (noise-perturbed so simultaneous choosers spread out), then applies all
 moves with one scatter. ``hard_repair`` loops sweeps until no offender is
 left or the capacity shedding stops making progress.
+
+``topic_rebalance`` sheds TopicReplicaDistribution's over-band (topic,
+broker) cells the same way, for a soft goal; it runs on the host in numpy
+(one copy of the placement each way).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from ccx_torch.common.resources import NUM_RESOURCES, Resource
 from ccx_torch.goals.base import GoalConfig
 from ccx_torch.model.aggregates import broker_aggregates
 from ccx_torch.model.tensor_model import TensorClusterModel
@@ -280,6 +286,319 @@ def canonicalize_preferred_leaders(m: TensorClusterModel) -> tuple[TensorCluster
         m.replace(assignment=swap0(a), leader_slot=new_lead, replica_disk=swap0(m.replica_disk)),
         n,
     )
+
+
+def _group_ranks(keys: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(rank, group_start) per element of a SORTED key array: rank counts
+    earlier elements with the same key; group_start indexes each element's
+    first group member."""
+    idx = np.arange(keys.size)
+    seg = np.r_[True, keys[1:] != keys[:-1]] if keys.size else np.zeros(0, bool)
+    start = np.maximum.accumulate(np.where(seg, idx, 0))
+    return idx - start, start
+
+
+def topic_rebalance(
+    m: TensorClusterModel,
+    cfg: GoalConfig,
+    max_sweeps: int = 1024,
+    rounds_per_sweep: int = 16,
+    seed: int = 23,
+    move_leaders: bool = True,
+) -> tuple[TensorClusterModel, int]:
+    """Targeted TopicReplicaDistribution sweep: shed (topic, broker) cells
+    above their per-topic band by relocating replicas to brokers with topic
+    room, never violating a hard constraint.
+
+    Random proposals almost never align a drawn partition's topic with a
+    topic-underloaded destination, so this pass enumerates the offending
+    cells directly. It serves a soft goal, so the optimizer re-polishes the
+    result and adopts it only on a lexicographic improvement.
+
+    Aggregates ((topic, broker) counts, role-resolved broker loads, replica
+    counts, per-disk loads) are built once and kept per accepted move. Per
+    sweep: one replica per over cell (one per partition) is routed to its
+    topic's best destination: live band room, rack-distinct, not already
+    hosting, alive and receiving, within effective capacity on every
+    resource, under the replica-count band and cap, and utilization below
+    0.9. Destinations take batched intake per round under cumulative
+    band-room, replica-count and capacity checks. The loop stops after a
+    sweep that moved nothing, or after ``max_sweeps``.
+
+    Followers are preferred; with ``move_leaders`` a leader-held over cell
+    is shed by first handing leadership to a co-replica whose broker may
+    lead, absorbs the leader-load delta within capacity and (for
+    MinTopicLeaders topics) leaves the source its minimum of leaders.
+    Randomness comes from ``np.random.default_rng(seed)``, so a seed gives
+    the same placement as the JAX package's ``topic_rebalance``. Returns
+    (model, moves applied)."""
+    a = m.assignment.cpu().numpy().copy()
+    dsk = m.replica_disk.cpu().numpy().copy()
+    pvalid = m.partition_valid.cpu().numpy()
+    topic = m.partition_topic.cpu().numpy()
+    alive = m.broker_ok.cpu().numpy()
+    recv_ok = alive & ~m.broker_excl_replicas.cpu().numpy()
+    imm = m.partition_immovable.cpu().numpy()
+    rack = m.broker_rack.cpu().numpy()
+    lslot = m.leader_slot.cpu().numpy().copy()
+    T, B, P, R = m.num_topics, m.B, m.P, m.R
+
+    thr = cfg.topic_replica_balance_threshold
+    capthr = np.asarray(cfg.capacity_threshold)
+    cap_eff = m.broker_capacity.cpu().numpy() * capthr[:, None]    # [RES, B]
+    cap_eff = np.where(cap_eff > 0, cap_eff, np.inf)
+    lead_load = m.leader_load.cpu().numpy()                        # [RES, P]
+    foll_load = m.follower_load.cpu().numpy()
+    rng = np.random.default_rng(seed)
+    total_moved = 0
+
+    is_l = np.zeros((P, R), bool)
+    is_l[np.arange(P), np.clip(lslot, 0, R - 1)] = True
+    # role-resolved slot loads; a leadership transfer updates is_l and
+    # slot_load in place for its two slots, so nothing derived from them is
+    # cached across moves
+    tmat = np.repeat(topic, R).reshape(P, R)
+    slot_load = np.where(is_l[None], lead_load[:, :, None], foll_load[:, :, None])  # [RES, P, R]
+    D = m.D
+    disk_alive = m.disk_alive.cpu().numpy()                        # [B, D]
+
+    # aggregates kept per accepted move; per-topic totals (so the band
+    # uppers and the replica-count cap) do not change under moves
+    valid = (a >= 0) & pvalid[:, None]
+    counts = np.zeros((T, B), np.int64)
+    np.add.at(counts, (tmat[valid], a[valid]), 1)
+    counts[:, ~alive] = 0
+    tot = counts.sum(1).astype(np.float64)
+    avg = tot / max(int(alive.sum()), 1)
+    upper = np.ceil(avg * thr)
+
+    bload = np.zeros((NUM_RESOURCES, B))
+    for res in range(NUM_RESOURCES):
+        np.add.at(bload[res], a[valid], slot_load[res][valid])
+    dload = np.zeros((B, D))
+    dvalid = valid & (dsk >= 0)
+    np.add.at(
+        dload,
+        (a[dvalid], np.clip(dsk, 0, D - 1)[dvalid]),
+        slot_load[int(Resource.DISK)][dvalid],
+    )
+    rc = np.bincount(a[valid], minlength=B).astype(np.int64)
+    rc_avg = rc[alive].sum() / max(int(alive.sum()), 1)
+    rc_cap = min(
+        int(np.floor(rc_avg * cfg.replica_balance_threshold)),
+        int(cfg.max_replicas_per_broker),
+    )
+
+    excl_lead = m.broker_excl_leadership.cpu().numpy()
+    tmin = m.topic_min_leaders.cpu().numpy()
+    need_tlc = move_leaders and bool(tmin.any())
+    if need_tlc:
+        tlc = np.zeros((T, B), np.int64)
+        lv = valid & is_l
+        np.add.at(tlc, (tmat[lv], a[lv]), 1)
+        k_min = int(cfg.min_topic_leaders_per_broker)
+
+    for _ in range(max_sweeps):
+        util = np.max(bload / cap_eff, axis=0)
+        over = counts > upper[:, None]
+        on_over = valid & over[tmat, np.clip(a, 0, B - 1)] & ~imm[:, None]
+        cand_f = on_over & ~is_l
+        pf, rf = np.nonzero(cand_f)
+        if move_leaders:
+            # leaders need a co-replica to hand leadership to
+            cand_l = on_over & is_l & (valid.sum(1) >= 2)[:, None]
+            pl, rl = np.nonzero(cand_l)
+        else:
+            pl = rl = np.zeros(0, np.int64)
+        if pf.size + pl.size == 0:
+            break
+        # one candidate per partition and per (topic, source broker) cell,
+        # followers first; the permutations keep cell picks fair
+        of = rng.permutation(pf.size)
+        ol = rng.permutation(pl.size)
+        ps = np.concatenate([pf[of], pl[ol]])
+        rs = np.concatenate([rf[of], rl[ol]])
+        # np.unique returns first occurrences in value order; np.sort
+        # restores array order, so followers stay ahead of leaders
+        fp = np.sort(np.unique(ps, return_index=True)[1])
+        ps, rs = ps[fp], rs[fp]
+        cell = topic[ps].astype(np.int64) * B + a[ps, rs]
+        fc = np.sort(np.unique(cell, return_index=True)[1])
+        ps, rs = ps[fc], rs[fc]
+        ts = topic[ps]
+        # occurrence rank within the topic: one topic's candidates fan out
+        # over different destinations in the same round
+        t_order = np.argsort(ts, kind="stable")
+        t_inv = np.empty_like(t_order)
+        t_inv[t_order] = np.arange(ts.size)
+        occ = _group_ranks(ts[t_order])[0][t_inv]
+        lead_row = is_l[ps, rs]
+        # new-leader slot: the first other valid slot whose broker may lead
+        ov = valid[ps].copy()
+        ov[np.arange(ps.size), rs] = False
+        ab = np.clip(a[ps], 0, B - 1)
+        elig = ov & alive[ab] & ~excl_lead[ab]
+        nl = np.where(elig.any(axis=1), np.argmax(elig, axis=1), np.argmax(ov, axis=1))
+        b2 = np.where(lead_row, a[ps, nl], -1)
+
+        room = np.where(recv_ok[None, :], np.maximum(upper[:, None] - counts, 0), 0)
+        dest_ok_b = (
+            (rc[None, :] < rc_cap)
+            & (util[None, :] < 0.9)
+            & (room > 0)
+            & disk_alive.any(axis=1)[None, :]
+        )
+        dest_score = np.where(dest_ok_b, room + (0.9 - util[None, :]), -np.inf)
+        # top destinations per topic, W wide; each topic starts at its own
+        # rotation offset so topics spread over different brokers
+        width = min(B, max(rounds_per_sweep, 64))
+        top_dest = np.argsort(-dest_score, axis=1)[:, :width]
+        moved = 0
+        kf = kl = 0
+        for k in range(min(rounds_per_sweep, top_dest.shape[1])):
+            if ps.size == 0:
+                break
+            have_f = bool((~lead_row).any())
+            have_l = move_leaders and bool(lead_row.any())
+            if not (have_f or have_l):
+                break
+            # follower and leader rounds alternate; a leader round draws a
+            # random broker bipartition, so its destinations and new-leader
+            # brokers are disjoint and the new leader's capacity check
+            # stays exact under batched intake
+            lead_round = have_l and (not have_f or k % 2 == 1)
+            if lead_round:
+                rank_k, kl = kl, kl + 1
+            else:
+                rank_k, kf = kf, kf + 1
+            dest = top_dest[ts, (rank_k + ts + occ) % top_dest.shape[1]]
+            ok = np.isfinite(dest_score[ts, dest])
+            ok &= lead_row if lead_round else ~lead_row
+            ok &= (upper[ts] - counts[ts, dest]) > 0
+            ok &= rc[dest] < rc_cap
+            ok &= ~(a[ps] == dest[:, None]).any(axis=1)
+            rrows = np.where(a[ps] >= 0, rack[np.clip(a[ps], 0, B - 1)], -1)
+            rrows[np.arange(ps.size), rs] = -1
+            ok &= ~(rrows == rack[dest][:, None]).any(axis=1)
+            ok &= np.all(bload[:, dest] + foll_load[:, ps] <= cap_eff[:, dest], axis=0)
+            if lead_round:
+                b2c = np.clip(b2, 0, B - 1)
+                delta = lead_load[:, ps] - foll_load[:, ps]
+                b2_ok = (
+                    alive[b2c]
+                    & ~excl_lead[b2c]
+                    & np.all(bload[:, b2c] + delta <= cap_eff[:, b2c], axis=0)
+                )
+                if need_tlc:
+                    srcb = np.clip(a[ps, rs], 0, B - 1)
+                    b2_ok &= ~tmin[ts] | (tlc[ts, srcb] - 1 >= k_min)
+                coin = rng.integers(0, 2, B).astype(bool)
+                ok &= b2_ok & ~coin[dest] & coin[b2c]
+            if ok.any():
+                oi = np.nonzero(ok)[0]
+                if lead_round:
+                    # one leadership transfer per new-leader broker per round
+                    _, fb2 = np.unique(b2[oi], return_index=True)
+                    oi = oi[np.sort(fb2)]
+                if oi.size == 0:
+                    continue
+                # batched intake: within each destination's group, sorted by
+                # (dest, topic), a row is taken only while the band room, the
+                # replica-count cap and every resource capacity still hold
+                # with all earlier rows of the group counted (rows later
+                # rejected count too, which only under-accepts)
+                order = np.lexsort((ts[oi], dest[oi]))
+                ois = oi[order]
+                d_s, t_s = dest[ois], ts[ois]
+                rank_d, start_d = _group_ranks(d_s)
+                rank_td, _ = _group_ranks(d_s.astype(np.int64) * T + t_s)
+                load_s = foll_load[:, ps[ois]]               # [RES, n]
+                cum = np.cumsum(load_s, axis=1)
+                grp_base = (cum - load_s)[:, start_d]
+                cum_within = cum - grp_base                  # incl. self
+                take = rank_td < (upper[t_s] - counts[t_s, d_s])
+                take &= rank_d < (rc_cap - rc[d_s])
+                take &= np.all(bload[:, d_s] + cum_within <= cap_eff[:, d_s], axis=0)
+                oi, rank_acc = ois[take], rank_d[take]
+                if oi.size == 0:
+                    continue
+                ai, ri, di = ps[oi], rs[oi], dest[oi]
+                lr = lead_row[oi]
+                src = a[ai, ri]
+                old_d = dsk[ai, ri]
+                # the source sheds its current role-resolved load, the
+                # destination gains follower load, and a leader row's new
+                # leader gains the (leader - follower) delta
+                cur = slot_load[:, ai, ri]          # [RES, n]
+                for res in range(NUM_RESOURCES):
+                    np.subtract.at(bload[res], src, cur[res])
+                    np.add.at(bload[res], di, foll_load[res, ai])
+                if lr.any():
+                    ail, nll = ai[lr], nl[oi][lr]
+                    b2l = a[ail, nll]
+                    for res in range(NUM_RESOURCES):
+                        np.add.at(bload[res], b2l, lead_load[res, ail] - foll_load[res, ail])
+                    d2 = dsk[ail, nll]
+                    np.add.at(
+                        dload,
+                        (b2l, np.clip(d2, 0, D - 1)),
+                        np.where(
+                            d2 >= 0,
+                            lead_load[int(Resource.DISK), ail] - foll_load[int(Resource.DISK), ail],
+                            0.0,
+                        ),
+                    )
+                    if need_tlc:
+                        np.subtract.at(tlc, (topic[ail], a[ail, ri[lr]]), 1)
+                        np.add.at(tlc, (topic[ail], b2l), 1)
+                    lslot[ail] = nll
+                    is_l[ail, ri[lr]] = False
+                    is_l[ail, nll] = True
+                    for res in range(NUM_RESOURCES):
+                        slot_load[res, ail, ri[lr]] = foll_load[res, ail]
+                        slot_load[res, ail, nll] = lead_load[res, ail]
+                a[ai, ri] = di
+                np.subtract.at(
+                    dload,
+                    (src, np.clip(old_d, 0, D - 1)),
+                    np.where(old_d >= 0, cur[int(Resource.DISK)], 0.0),
+                )
+                # the k-th intake of a destination this round lands on its
+                # k-th least-loaded alive disk
+                dchoice = np.where(disk_alive[di], dload[di], np.inf)
+                ranked = np.argsort(dchoice, axis=1)
+                n_alive_d = np.maximum(disk_alive[di].sum(axis=1), 1)
+                best_d = ranked[np.arange(di.size), rank_acc % n_alive_d].astype(dsk.dtype)
+                dsk[ai, ri] = best_d
+                np.add.at(dload, (di, best_d), foll_load[int(Resource.DISK), ai])
+                np.subtract.at(counts, (ts[oi], src), 1)
+                np.add.at(counts, (ts[oi], di), 1)
+                np.subtract.at(rc, src, 1)
+                np.add.at(rc, di, 1)
+                moved += oi.size
+                keep = np.ones(ps.size, bool)
+                keep[oi] = False
+                ps, rs, ts = ps[keep], rs[keep], ts[keep]
+                lead_row, b2, nl = lead_row[keep], b2[keep], nl[keep]
+                occ = occ[keep]
+            # candidates that found no destination retry the next-ranked
+            # destination in the following round
+        total_moved += moved
+        if moved == 0:
+            break
+
+    if total_moved == 0:
+        return m, 0
+
+    def back(x: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+        return torch.from_numpy(x).to(device=like.device, dtype=like.dtype)
+
+    out = m.replace(
+        assignment=back(a, m.assignment),
+        replica_disk=back(dsk, m.replica_disk),
+        leader_slot=back(lslot, m.leader_slot),
+    )
+    return out, total_moved
 
 
 def finalize_preferred_leaders(model: TensorClusterModel, cfg: GoalConfig, goal_names, stack_after):

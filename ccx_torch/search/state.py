@@ -18,6 +18,10 @@ Every accumulator except the broker-load-style float sums is integer-valued
 and exact in float32; the float goals are recomputed from the aggregates at
 every move, never accumulated.
 
+Two-partition swaps (``make_swap_scorer``/``apply_swap``) compose both
+partitions' deltas exactly; a single move is a swap whose second partition
+is inert (rows -1, weight 0).
+
 Layout: a ``SearchState`` carries a leading chain axis C on every field (the
 annealer's chains; the greedy descent runs one chain). Candidate moves carry
 a leading axis K and name the chain they are scored against (``chain``,
@@ -37,11 +41,12 @@ from ccx_torch.goals.base import GOAL_REGISTRY, GoalConfig
 from ccx_torch.model.aggregates import BROKER_FIELDS, BrokerAggregates, broker_aggregates
 from ccx_torch.model.tensor_model import TensorClusterModel
 
-#: per-move-type proposal/acceptance counters; the swap kinds stay at 0
-#: until the swap move class is ported
+#: per-move-type proposal/acceptance counters
 MOVE_KIND_NAMES = ("single", "replicaSwap", "leadershipSwap")
 NUM_MOVE_KINDS = len(MOVE_KIND_NAMES)
 KIND_SINGLE = 0
+KIND_REPLICA_SWAP = 1
+KIND_LEADERSHIP_SWAP = 2
 
 
 @dataclasses.dataclass
@@ -85,6 +90,15 @@ class MoveDelta:
 
 
 @dataclasses.dataclass
+class SwapDelta(MoveDelta):
+    """MoveDelta of a two-partition swap: the combined accumulator deltas
+    plus the second topic's total delta (0 when both share a topic, whose
+    ``d_total`` then carries both)."""
+
+    d_total2: torch.Tensor   # float32[K] topic(p2) alive-replica-total delta
+
+
+@dataclasses.dataclass
 class PartitionView:
     """Every per-partition datum a move needs, for K partitions."""
 
@@ -115,16 +129,32 @@ def gather_views(
     )
 
 
+def cat_views(*views: PartitionView) -> PartitionView:
+    """The views stacked along their leading axis."""
+    return PartitionView(**{
+        f.name: torch.cat([getattr(v, f.name) for v in views])
+        for f in dataclasses.fields(PartitionView)
+    })
+
+
+def view_rows(view: PartitionView, idx: torch.Tensor) -> PartitionView:
+    """Rows ``idx`` of a stacked view."""
+    return PartitionView(**{
+        f.name: getattr(view, f.name)[idx] for f in dataclasses.fields(PartitionView)
+    })
+
+
 def bump_kind_counters(
     state: SearchState,
     chain: torch.Tensor,
-    kind: int,
+    kind: int | torch.Tensor,
     proposed: torch.Tensor | int,
     accepted: torch.Tensor,
 ) -> None:
-    """Add to the per-move-kind proposal/acceptance counters of ``chain``."""
+    """Add to the per-move-kind proposal/acceptance counters of ``chain``
+    (``kind`` one KIND_* for all, or one per entry)."""
     c = chain.long()
-    k = torch.full_like(c, kind)
+    k = kind.long() if torch.is_tensor(kind) else torch.full_like(c, kind)
     prop = proposed if torch.is_tensor(proposed) else torch.full_like(c, proposed, dtype=torch.int32)
     state.n_prop_kind.index_put_((c, k), prop, accumulate=True)
     state.n_acc_kind.index_put_((c, k), accepted.int(), accumulate=True)
@@ -137,6 +167,10 @@ def bump_kind_counters(
 #: static resource weights of the combined per-replica usage scalar
 #: (CPU, NW_IN, NW_OUT, DISK)
 USAGE_WEIGHTS = (0.3, 0.0, 1.0, 0.0)
+
+
+def usage_weights(device) -> torch.Tensor:
+    return torch.tensor(USAGE_WEIGHTS, dtype=torch.float32, device=device)
 
 
 @dataclasses.dataclass
@@ -507,34 +541,46 @@ def make_move_scorer(m: TensorClusterModel, goal_names: tuple[str, ...], cfg: Go
     return score
 
 
+def _masked_put(buf: torch.Tensor, idx: tuple, values: torch.Tensor, mask: torch.Tensor) -> None:
+    """``buf[idx] = values`` for the entries where ``mask``; the others are
+    dropped. Each write adds its difference to the current cell, and a
+    dropped one adds zero, so a dropped entry never writes an old value
+    back over an accepted entry that shares its index (the scatter order
+    of duplicate indices is undefined on CUDA)."""
+    cur = buf[idx]
+    keep = mask.view(mask.shape + (1,) * (values.dim() - mask.dim()))
+    buf.index_put_(idx, torch.where(keep, values - cur, 0), accumulate=True)
+
+
 def _placement_updates(
     state: SearchState,
     group: TopicGroup | None,
-    chain: torch.Tensor,   # int[K]
-    ps: torch.Tensor,      # int[K]
-    ts: torch.Tensor,      # int[K]
-    pvalid: torch.Tensor,  # bool[K]
-    rows: torch.Tensor,    # int32[K, R] rows to write
-    leads: torch.Tensor,   # int32[K]
-    disks: torch.Tensor,   # int32[K, R]
+    chain: torch.Tensor,   # int[k]
+    ps: torch.Tensor,      # int[k]
+    ts: torch.Tensor,      # int[k]
+    write: torch.Tensor,   # bool[k] placement-row writes to perform
+    mirror: torch.Tensor,  # bool[k] grouped-mirror writes to perform
+    rows: torch.Tensor,    # int32[k, R] new assignment rows
+    leads: torch.Tensor,   # int32[k]
+    disks: torch.Tensor,   # int32[k, R]
 ) -> None:
-    """Write K placement rows (and the grouped mirror) in place. The (chain,
-    partition) pairs must be distinct; a caller that rejects a move passes
-    its old rows. Invalid partitions have no mirror entry and skip it."""
+    """Write k placement rows (and their grouped-mirror entries) in place.
+    Entries whose mask is False are dropped, never written back, so
+    (chain, partition) pairs may repeat as long as at most one of them
+    writes: an accepted row is never clobbered by a rejected one. Invalid
+    partitions have no mirror entry (their ``mirror`` must be False)."""
     c, p = chain.long(), ps.long()
-    state.assignment[c, p] = rows
-    state.leader_slot[c, p] = leads
-    state.replica_disk[c, p] = disks
+    _masked_put(state.assignment, (c, p), rows, write)
+    _masked_put(state.leader_slot, (c, p), leads, write)
+    _masked_put(state.replica_disk, (c, p), disks, write)
     if state.grouped_assign is None:
         return
     if group is None:
         raise ValueError("state carries a grouped mirror; pass group=")
     t = ts.long()
     j = group.member_slot[p].long()
-    cur_rows = state.grouped_assign[c, t, j]
-    cur_lead = state.grouped_leader[c, t, j]
-    state.grouped_assign[c, t, j] = torch.where(pvalid[:, None], rows, cur_rows)
-    state.grouped_leader[c, t, j] = torch.where(pvalid, leads, cur_lead)
+    _masked_put(state.grouped_assign, (c, t, j), rows, mirror)
+    _masked_put(state.grouped_leader, (c, t, j), leads, mirror)
 
 
 def apply_move(
@@ -550,8 +596,8 @@ def apply_move(
     group: TopicGroup | None = None,
 ) -> None:
     """Apply the scored moves where ``accept``, in place; a rejected move
-    changes nothing (its scatters carry weight 0 and its rows are written
-    back unchanged). ``chain`` entries must be distinct."""
+    changes nothing (its scatters carry weight 0 and its row writes are
+    dropped). ``chain`` entries must be distinct."""
     af, ai = accept.float(), accept.int()
     scatter_partition(state.agg, m, chain, view, *old, -af, -ai)
     scatter_partition(state.agg, m, chain, view, *new, af, ai)
@@ -562,12 +608,138 @@ def apply_move(
     state.trd_sum.index_put_((c,), af * delta.d_trd, accumulate=True)
     state.cost_vec[c] = torch.where(accept[:, None], delta.cost_vec, state.cost_vec[c])
     state.n_accepted.index_put_((c,), ai, accumulate=True)
-    keep = accept[:, None]
     _placement_updates(
-        state, group, chain, p, view.topic, view.pvalid,
-        rows=torch.where(keep, new[0], old[0]),
-        leads=torch.where(accept, new[1], old[1]),
-        disks=torch.where(keep, new[2], old[2]),
+        state, group, chain, p, view.topic,
+        write=accept, mirror=accept & view.pvalid,
+        rows=new[0], leads=new[1], disks=new[2],
+    )
+
+
+def make_swap_scorer(m: TensorClusterModel, goal_names: tuple[str, ...], cfg: GoalConfig):
+    """``score(state, chain, view1, old1, new1, view2, old2, new2) ->
+    SwapDelta`` for K two-partition candidates, each against its chain's
+    current state.
+
+    A replica swap exchanges two replicas between brokers, so it keeps every
+    broker's replica count: it reaches usage-balanced states a single
+    relocation cannot without breaking the count band on the way. Scoring
+    composes both partitions' deltas exactly, including the same-topic case
+    where one [T, B] row takes both. A single move passes an inert second
+    partition (rows -1), whose every contribution is zero."""
+    vector_fn = make_cost_vector_fn(m, goal_names, cfg)
+    needs_topic = stack_needs_topic(goal_names)
+    T = m.num_topics
+    n_alive = m.broker_ok.sum().clamp(min=1).float()
+
+    def score(state: SearchState, chain, view1, old1, new1, view2, old2, new2) -> SwapDelta:
+        K = chain.shape[0]
+        dev = chain.device
+        c = chain.long()
+        agg = _take_rows(state.agg, chain)
+        rows = torch.arange(K, device=dev)
+        one_f = torch.ones(K, device=dev)
+        one_i = torch.ones(K, dtype=torch.int32, device=dev)
+        scatter_partition(agg, m, rows, view1, *old1, -one_f, -one_i)
+        scatter_partition(agg, m, rows, view1, *new1, one_f, one_i)
+        scatter_partition(agg, m, rows, view2, *old2, -one_f, -one_i)
+        scatter_partition(agg, m, rows, view2, *new2, one_f, one_i)
+        part_new = (
+            state.part_sums[c]
+            - partition_row_sums(m, view1, *old1)
+            + partition_row_sums(m, view1, *new1)
+            - partition_row_sums(m, view2, *old2)
+            + partition_row_sums(m, view2, *new2)
+        )
+        if needs_topic:
+            t1, t2 = view1.topic, view2.topic
+            same = t1 == t2
+            drc1, dlc1 = topic_row_delta(m, view1, old1, new1)
+            drc2, dlc2 = topic_row_delta(m, view2, old2, new2)
+            trc, tlc = derived_topic_rows(state, torch.cat([chain, chain]), torch.cat([t1, t2]), m.B)
+            trc1, trc2, tlc1, tlc2 = trc[:K], trc[K:], tlc[:K], tlc[K:]
+            flag = m.topic_min_leaders[torch.cat([t1, t1, t2]).long()]
+            # three row variants at once: one row taking both deltas (same
+            # topic), then each partition's row on its own
+            row_trc = torch.cat([trc1, trc1, trc2])
+            row_tlc = torch.cat([tlc1, tlc1, tlc2])
+            new_trc = row_trc + torch.cat([drc1 + drc2, drc1, drc2])
+            new_tlc = row_tlc + torch.cat([dlc1 + dlc2, dlc1, dlc2])
+            d_mtl3 = tt.mtl_row(m, cfg, flag, new_tlc) - tt.mtl_row(m, cfg, flag, row_tlc)
+            pen_n, _ = tt.trd_row_pen(m, cfg, new_trc)
+            pen_o, _ = tt.trd_row_pen(m, cfg, row_trc)
+            d_trd3 = pen_n - pen_o
+            tot_o = tt.trd_row_total(m, row_trc)
+            tot_n = tt.trd_row_total(m, new_trc)
+            d_tot3 = tot_n - tot_o
+            d_norm3 = ((tot_n / n_alive).clamp(min=1.0) - (tot_o / n_alive).clamp(min=1.0)) / float(T)
+            sm, a1, a2 = slice(0, K), slice(K, 2 * K), slice(2 * K, 3 * K)
+            d_mtl = torch.where(same, d_mtl3[sm], d_mtl3[a1] + d_mtl3[a2])
+            d_trd = torch.where(same, d_trd3[sm], d_trd3[a1] + d_trd3[a2])
+            d_total = torch.where(same, d_tot3[sm], d_tot3[a1])
+            d_total2 = torch.where(same, 0.0, d_tot3[a2])
+            d_norm = torch.where(same, d_norm3[sm], d_norm3[a1] + d_norm3[a2])
+            norm_new = tt.trd_normalizer(m, state.topic_totals[c]) + d_norm
+            norm_new = torch.where(norm_new > 0, norm_new, 1.0)
+        else:
+            d_mtl = d_trd = d_total = d_total2 = torch.zeros(K, device=dev)
+            norm_new = torch.ones(K, device=dev)
+        cost_vec = vector_fn(
+            agg, part_new, state.mtl_sum[c] + d_mtl, state.trd_sum[c] + d_trd, norm_new
+        )
+        return SwapDelta(
+            cost_vec=cost_vec, part_sums=part_new, d_mtl=d_mtl, d_trd=d_trd,
+            d_total=d_total, d_total2=d_total2,
+        )
+
+    return score
+
+
+def apply_swap(
+    state: SearchState,
+    m: TensorClusterModel,
+    chain: torch.Tensor,
+    p1: torch.Tensor,
+    view1: PartitionView,
+    old1,
+    new1,
+    p2: torch.Tensor,
+    view2: PartitionView,
+    old2,
+    new2,
+    delta: SwapDelta,
+    accept: torch.Tensor,   # bool[K]
+    group: TopicGroup | None = None,
+    active2: torch.Tensor | bool = True,
+) -> None:
+    """Apply the scored two-partition candidates where ``accept``, in place
+    (a rejected one changes nothing, as in ``apply_move``). ``chain``
+    entries must be distinct. Where ``active2`` is False partition 2 is
+    inert (a single move): its writes are dropped, which also covers a
+    partner drawn equal to partition 1."""
+    af, ai = accept.float(), accept.int()
+    scatter_partition(state.agg, m, chain, view1, *old1, -af, -ai)
+    scatter_partition(state.agg, m, chain, view1, *new1, af, ai)
+    scatter_partition(state.agg, m, chain, view2, *old2, -af, -ai)
+    scatter_partition(state.agg, m, chain, view2, *new2, af, ai)
+    c = chain.long()
+    state.part_sums[c] = torch.where(accept[:, None], delta.part_sums, state.part_sums[c])
+    state.topic_totals.index_put_(
+        (torch.cat([c, c]), torch.cat([view1.topic, view2.topic]).long()),
+        torch.cat([af * delta.d_total, af * delta.d_total2]), accumulate=True,
+    )
+    state.mtl_sum.index_put_((c,), af * delta.d_mtl, accumulate=True)
+    state.trd_sum.index_put_((c,), af * delta.d_trd, accumulate=True)
+    state.cost_vec[c] = torch.where(accept[:, None], delta.cost_vec, state.cost_vec[c])
+    state.n_accepted.index_put_((c,), ai, accumulate=True)
+    write2 = accept & active2
+    _placement_updates(
+        state, group, torch.cat([chain, chain]), torch.cat([p1, p2]),
+        torch.cat([view1.topic, view2.topic]),
+        write=torch.cat([accept, write2]),
+        mirror=torch.cat([accept & view1.pvalid, write2 & view2.pvalid]),
+        rows=torch.cat([new1[0], new2[0]]),
+        leads=torch.cat([new1[1], new2[1]]),
+        disks=torch.cat([new1[2], new2[2]]),
     )
 
 

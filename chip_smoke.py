@@ -19,13 +19,25 @@ Phases, one JSON line each:
    Integers must match exactly, floats within rtol 1e-5 / atol 1e-3 (float
    sums are taken with atomics in a run-dependent order);
 4. main path — ``ccx_torch.optimizer.optimize`` on B5 with the full
-   default goal stack at the bench's "target" rung (16 chains x 250 steps x
-   8 moves, polish 150 iterations patience 8, leader pass 100) with
-   ``p_swap=0``: wall and phase seconds, violations before and after,
-   ``verified`` and the kernel launch counts of this run; the final stack is
-   re-scored with the plain aggregates, and a small cluster's stack on the
-   card is held against the same stack on the CPU;
-5. after the main path, which so runs as it would alone: the same kernel
+   default goal stack at the bench's "target" rung, built by
+   ``ccx_torch.rungs.build_opts("B5", "target")`` (16 chains x 250 steps x 8
+   moves at the JAX defaults: ``p_swap=0.15``, the batched SA step,
+   usage-coupled swaps; polish 150 iterations patience 8, leader pass 100;
+   no topic-rebalance stage, no portfolio): wall and phase seconds,
+   violations before and after, ``verified``, the SA engine, the move
+   counters and the kernel launch counts of this run; the final stack is
+   re-scored with the plain aggregates;
+5. lean path — the same on B5 at the "lean" rung, not shrunk (16 chains x
+   500 steps x 8 moves; the pre-shed polish skipped; one topic-rebalance
+   round of up to 1024 sweeps with leader moves and a guarded
+   700-iteration re-polish; swap polish 150 + 300 iterations with 128
+   candidates, guarded; leader pass 150), with the same line and checks;
+6. result check — a small cluster's stack on the card held against the same
+   stack on the CPU, and three batched SA steps on a 64-broker cluster (3
+   chains, 4 moves), then three swap-polish iterations, fed the same draws
+   on the card and on the CPU: integer state, placement and grouped mirror
+   equal, cost vectors within rtol 1e-5;
+7. after both paths, which so run as they would alone: the same kernel
    check on B6 (10k brokers / 1M partitions, whose shared rows need broker
    tiles), then the kernel times at B5, 4000 brokers and B6 (last, since
    torch.profiler's tracing slows every later launch of the process):
@@ -35,13 +47,17 @@ Phases, one JSON line each:
    kernel's own choice and for each forced way; at B5 also the plain
    version's time. The ``kernels`` line gives B5's: its ``ms`` is the call
    time ``call_ms``, beside ``device_ms`` and ``host_us``;
-6. profile — the device busy share of 10 SA steps and 10 polish
-   iterations on the repaired B5 model, under torch.profiler;
-7. the card's ``nvidia-smi`` line, then the ``kernels`` line, then the
+8. profile — the device busy share and kernel count, under torch.profiler,
+   of windows on the repaired B5 model: 10 single-move SA steps
+   (``p_swap=0``) and 10 polish iterations, as measured before the swap
+   engine, then 10 batched SA steps at ``p_swap=0.15`` and 10 swap-polish
+   iterations;
+9. the card's ``nvidia-smi`` line, then the ``kernels`` line, then the
    contract line ``{"ok": true, "device": {...}}`` last.
 
-Any failed check, an unverified result, remaining hard violations or a
-kernel of the main path launched zero times exits non-zero. Needs one CUDA
+Any failed check, an unverified result, remaining hard violations, a path
+that never proposed both kinds of swap (target) or launched a kernel of
+the path zero times exits non-zero. Needs one CUDA
 device; run from the repository root: ``python3 chip_smoke.py``.
 """
 
@@ -63,12 +79,16 @@ PEAK_F32_OPS_PER_S = 67e12
 RTOL, ATOL = 1e-5, 1e-3
 FLOAT_FIELDS = ("broker_load", "potential_nw_out", "leader_bytes_in", "disk_load")
 INT_FIELDS = ("replica_count", "leader_count", "topic_replica_count", "topic_leader_count")
-#: the bench's "target" rung (bench.py:223), with swaps off
-CHAINS, STEPS, MOVES = 16, 250, 8
-POLISH_ITERS, POLISH_PATIENCE, LEADER_ITERS = 150, 8, 100
-#: CUDA-event timing launches per kernel; SA steps and polish iterations
+#: the two paths: the bench's rungs, from ``ccx_torch.rungs.build_opts``
+PATHS = (("main-path", "target"), ("lean-path", "lean"))
+#: CUDA-event timing launches per kernel; SA steps and descent iterations
 #: under the profiler
 TIMING_ITERS, PROFILE_STEPS = 200, 10
+#: the card-against-CPU batched step: a cluster wide enough for the batched
+#: engine (64 brokers >= 4 * R * 4 moves), chains, moves, steps
+STEP_SPEC = dict(n_brokers=64, n_racks=8, n_topics=16, n_partitions=400,
+                 n_dead_brokers=2, seed=11)
+STEP_CHAINS, STEP_MOVES, STEP_COUNT = 3, 4, 3
 #: sparse wide clusters, two partitions per broker: B pads to 4096, then to
 #: 8192, where the kernel's rows in shared memory need broker tiles
 WIDE_SPEC = dict(n_brokers=4000, n_racks=40, n_topics=64, n_partitions=8000,
@@ -238,6 +258,93 @@ def device_busy(fn) -> dict:
             "busy_share": busy_us / 1e6 / wall, "kernels": len(spans)}
 
 
+def draws_to(d, device):
+    """A draws dataclass (nested ones included) with every tensor on
+    ``device``."""
+    out = {}
+    for f in dataclasses.fields(d):
+        v = getattr(d, f.name)
+        out[f.name] = v.to(device) if hasattr(v, "to") else draws_to(v, device)
+    return type(d)(**out)
+
+
+def card_against_cpu(dev) -> dict:
+    """``STEP_COUNT`` batched SA steps, then as many swap-polish iterations,
+    on a small cluster, on the card and on the CPU from the same arrays and
+    the same draws (drawn on the CPU): placement, grouped mirror, integer
+    aggregates, accumulators and counters must be equal, cost vectors within
+    rtol 1e-5 / atol 1e-6."""
+    import torch
+    from ccx_torch.goals.base import GoalConfig
+    from ccx_torch.goals.stack import DEFAULT_GOAL_ORDER
+    from ccx_torch.model.fixtures import RandomClusterSpec, random_cluster
+    from ccx_torch.model.tensor_model import model_arrays, model_from_arrays
+    from ccx_torch.search import annealer as ann
+    from ccx_torch.search import state as st
+    from ccx_torch.search.greedy import SwapPolishIteration, SwapPolishOptions, draw_swap_polish
+
+    host = random_cluster(RandomClusterSpec(**STEP_SPEC), device="cpu")
+    arrays = model_arrays(host)
+    cfg, goals = GoalConfig(), DEFAULT_GOAL_ORDER
+    opts = ann.AnnealOptions(n_chains=STEP_CHAINS, moves_per_step=STEP_MOVES)
+    runs = []
+    for where in ("cpu", dev):
+        m = model_from_arrays(arrays, host.num_topics, host.num_racks, where)
+        p_real, b_real = ann.real_sizes(m)
+        pp = ann.proposal_params(opts, goals, cfg, p_real, b_real)
+        engine = ann.step_engine(opts, pp, m.R, False)
+        group = st.make_topic_group(m, st.max_partitions_per_topic(m))
+        evac, n_evac = ann.hot_partition_list(m, goals, cfg)
+        state = st.init_search_state(m, cfg, goals, group=group, n_chains=STEP_CHAINS)
+        runs.append((m, pp, engine, group, evac, n_evac, state))
+    (m_c, pp_c, engine, group_c, evac_c, n_c, s_c), (m_d, pp_d, _, group_d, evac_d, n_d, s_d) = runs
+    if engine != "batched" or n_c != n_d:
+        fail(f"batched step check: engine {engine}, hot lists {n_c} / {n_d}")
+    gen = torch.Generator().manual_seed(3)
+    kw_c = ann.step_kwargs(m_c, cfg, goals, pp_c, engine, STEP_MOVES, group_c)
+    kw_d = ann.step_kwargs(m_d, cfg, goals, pp_d, engine, STEP_MOVES, group_d)
+    for _ in range(STEP_COUNT):
+        d = ann.draw_batched(gen, STEP_CHAINS, STEP_MOVES, m_c, pp_c, n_c)
+        ann._anneal_step_batched(s_c, d, 0.3, pp_c.p_swap, evac_c, n_c, **kw_c)
+        ann._anneal_step_batched(s_d, draws_to(d, dev), 0.3, pp_d.p_swap, evac_d, n_d, **kw_d)
+    torch.cuda.synchronize()
+    exact = ("assignment", "leader_slot", "replica_disk", "grouped_assign", "grouped_leader",
+             "part_sums", "topic_totals", "mtl_sum", "trd_sum", "n_accepted", "n_prop_kind",
+             "n_acc_kind")
+    for f in exact:
+        if not torch.equal(getattr(s_c, f), getattr(s_d, f).cpu()):
+            fail(f"batched step: {f} differs between the card and the CPU")
+    for f in ("replica_count", "leader_count"):
+        if not torch.equal(getattr(s_c.agg, f), getattr(s_d.agg, f).cpu()):
+            fail(f"batched step: {f} differs between the card and the CPU")
+    if not torch.allclose(s_c.cost_vec, s_d.cost_vec.cpu(), rtol=RTOL, atol=1e-6):
+        fail("batched step: cost vectors differ between the card and the CPU")
+    sa = {"engine": engine, "chains": STEP_CHAINS, "moves": STEP_MOVES, "steps": STEP_COUNT,
+          "accepted": int(s_c.n_accepted.sum()),
+          "accepted_by_kind": s_c.n_acc_kind.sum(0).tolist(),
+          "cost_max_abs_err": float((s_c.cost_vec - s_d.cost_vec.cpu()).abs().max())}
+
+    # swap-polish iterations on one chain, same draws on both
+    sp_opts = SwapPolishOptions(n_swap_candidates=32, n_lead_candidates=32)
+    steps = [SwapPolishIteration(m, cfg, goals, sp_opts) for m in (m_c, m_d)]
+    states = [st.init_search_state(m, cfg, goals, group=it.group) for m, it in zip((m_c, m_d), steps)]
+    applied = 0
+    for _ in range(STEP_COUNT):
+        d = draw_swap_polish(gen, m_c, steps[0].N)
+        on_cpu = steps[0](states[0], d, guard_on=True)
+        on_card = steps[1](states[1], draws_to(d, dev), guard_on=True)
+        if on_cpu != on_card:
+            fail(f"swap polish: {on_cpu} candidates applied on the CPU, {on_card} on the card")
+        applied += on_cpu
+    torch.cuda.synchronize()
+    for f in exact:
+        if not torch.equal(getattr(states[0], f), getattr(states[1], f).cpu()):
+            fail(f"swap polish: {f} differs between the card and the CPU")
+    if not torch.allclose(states[0].cost_vec, states[1].cost_vec.cpu(), rtol=RTOL, atol=1e-6):
+        fail("swap polish: cost vectors differ between the card and the CPU")
+    return {"batched_step": sa, "swap_polish": {"iters": STEP_COUNT, "applied": applied}}
+
+
 def main() -> None:
     import torch
 
@@ -250,9 +357,10 @@ def main() -> None:
     from ccx_torch.model.fixtures import bench_spec, random_cluster, shuffled_partitions
     from ccx_torch.model.tensor_model import model_arrays, model_from_arrays
     from ccx_torch.ops import broker_aggregates as agg_op
-    from ccx_torch.optimizer import OptimizeOptions, optimize
-    from ccx_torch.search.annealer import AnnealOptions, anneal
-    from ccx_torch.search.greedy import GreedyOptions, greedy_optimize
+    from ccx_torch.optimizer import optimize
+    from ccx_torch.rungs import build_opts
+    from ccx_torch.search.annealer import anneal
+    from ccx_torch.search.greedy import SwapPolishOptions, greedy_optimize, swap_polish
     from ccx_torch.search.repair import hard_repair
 
     # --- 1. device -----------------------------------------------------------
@@ -332,53 +440,59 @@ def main() -> None:
     emit({"phase": "kernel-check", "kernel": "broker_aggregates", "fixtures": checks,
           "B5_fixture_seconds": fixture_s})
 
-    # --- 4. main path ----------------------------------------------------------
+    # --- 4, 5. the two paths ----------------------------------------------
     cfg = GoalConfig()
-    opts = OptimizeOptions(
-        anneal=AnnealOptions(
-            n_chains=CHAINS, n_steps=STEPS, moves_per_step=MOVES, seed=42, p_swap=0.0,
-        ),
-        polish=GreedyOptions(n_candidates=256, max_iters=POLISH_ITERS, patience=POLISH_PATIENCE),
-        leader_pass_max_iters=LEADER_ITERS,
-    )
-    torch.cuda.reset_peak_memory_stats()
-    agg_op.LAUNCHES = 0
-    res = optimize(b5, cfg, DEFAULT_GOAL_ORDER, opts)
-    torch.cuda.synchronize()
-    launches = agg_op.LAUNCHES
-    before, after = res.stack_before.by_name(), res.stack_after.by_name()
-    hard_after = float(res.stack_after.hard_violations)
-    emit({
-        "phase": "main-path", "config": "B5", "goals": len(DEFAULT_GOAL_ORDER),
-        "effort": {"chains": CHAINS, "steps": STEPS, "moves": MOVES,
-                   "polish_iters": POLISH_ITERS, "polish_patience": POLISH_PATIENCE,
-                   "leader_iters": LEADER_ITERS, "p_swap": 0.0},
-        "wall_seconds": res.wall_seconds, "phase_seconds": res.phase_seconds,
-        "hard_violations_before": float(res.stack_before.hard_violations),
-        "hard_violations_after": hard_after,
-        "violations": {n: [before[n][0], after[n][0]] for n in res.stack_after.names},
-        "verified": res.verification.ok, "failures": res.verification.failures,
-        "replica_moves": res.num_replica_movements,
-        "leadership_moves": res.num_leadership_movements,
-        "move_counters": res.move_counters, "sa_accepted": res.n_sa_accepted,
-        "peak_device_bytes": torch.cuda.max_memory_allocated(),
-        "launches": {"broker_aggregates": launches},
-    })
-    if launches == 0:
-        fail("the main path never launched the broker_aggregates kernel")
-    if not res.verification.ok:
-        fail(f"verification failed: {res.verification.failures}")
-    if hard_after > 0:
-        fail(f"{hard_after} hard violations remain")
+    launches = {}
+    for phase, rung in PATHS:
+        goal_names, opts, effort = build_opts("B5", rung)
+        torch.cuda.reset_peak_memory_stats()
+        agg_op.LAUNCHES = 0
+        res = optimize(b5, cfg, goal_names, opts)
+        torch.cuda.synchronize()
+        launches[rung] = agg_op.LAUNCHES
+        before, after = res.stack_before.by_name(), res.stack_after.by_name()
+        hard_after = float(res.stack_after.hard_violations)
+        emit({
+            "phase": phase, "config": "B5", "rung": rung, "goals": len(goal_names),
+            "effort": {**effort, "polish_patience": opts.polish.patience,
+                       "leader_iters": opts.leader_pass_max_iters,
+                       "topic_rebalance_polish_iters": opts.topic_rebalance_polish_iters,
+                       "run_polish": opts.run_polish},
+            "sa_engine": res.sa_engine,
+            "wall_seconds": res.wall_seconds, "phase_seconds": res.phase_seconds,
+            "hard_violations_before": float(res.stack_before.hard_violations),
+            "hard_violations_after": hard_after,
+            "violations": {n: [before[n][0], after[n][0]] for n in res.stack_after.names},
+            "verified": res.verification.ok, "failures": res.verification.failures,
+            "replica_moves": res.num_replica_movements,
+            "leadership_moves": res.num_leadership_movements,
+            "move_counters": res.move_counters, "sa_accepted": res.n_sa_accepted,
+            "polish_moves": res.n_polish_moves,
+            "peak_device_bytes": torch.cuda.max_memory_allocated(),
+            "launches": {"broker_aggregates": launches[rung]},
+        })
+        if launches[rung] == 0:
+            fail(f"{phase} never launched the broker_aggregates kernel")
+        if not res.verification.ok:
+            fail(f"{phase}: verification failed: {res.verification.failures}")
+        if hard_after > 0:
+            fail(f"{phase}: {hard_after} hard violations remain")
+        if rung == "target":
+            if res.sa_engine != "batched":
+                fail(f"{phase}: the SA ran the {res.sa_engine} engine, not the batched one")
+            for move_kind in ("replicaSwap", "leadershipSwap"):
+                if res.move_counters[move_kind]["proposed"] == 0:
+                    fail(f"{phase}: no {move_kind} was proposed")
+        # the result's stack, re-scored with the plain aggregates
+        replain = evaluate_stack(res.model, cfg, goal_names,
+                                 agg=agg_op.broker_aggregates_plain(res.model))
+        if not torch.equal(replain.violations, res.stack_after.violations):
+            fail(f"{phase}: stack of the result disagrees between kernel and plain aggregates")
+        if not torch.allclose(replain.costs, res.stack_after.costs, rtol=RTOL, atol=1e-6):
+            fail(f"{phase}: stack costs of the result disagree between kernel and plain aggregates")
+        del res, replain
 
-    # the result's stack, re-scored with the plain aggregates
-    replain = evaluate_stack(res.model, cfg, DEFAULT_GOAL_ORDER,
-                             agg=agg_op.broker_aggregates_plain(res.model))
-    if not torch.equal(replain.violations, res.stack_after.violations):
-        fail("stack of the result disagrees between kernel and plain aggregates")
-    if not torch.allclose(replain.costs, res.stack_after.costs, rtol=RTOL, atol=1e-6):
-        fail("stack costs of the result disagree between kernel and plain aggregates")
-    # a small cluster's stack on the card against the same stack on the CPU
+    # --- 6. result check: the card against the CPU ----------------------------
     small = random_cluster(bench_spec("B3"), device=dev)
     host = model_from_arrays(model_arrays(small), small.num_topics, small.num_racks, "cpu")
     s_dev = evaluate_stack(small, cfg, DEFAULT_GOAL_ORDER)
@@ -387,9 +501,10 @@ def main() -> None:
         fail("small-cluster stack violations differ between the card and the CPU")
     if not torch.allclose(s_dev.costs.cpu(), s_cpu.costs, rtol=RTOL, atol=1e-6):
         fail("small-cluster stack costs differ between the card and the CPU")
-    emit({"phase": "result-check", "replain_violations_equal": True, "small_cpu_equal": True})
+    emit({"phase": "result-check", "replain_violations_equal": True, "small_cpu_equal": True,
+          "cpu_equal": card_against_cpu(dev)})
 
-    # --- 5. B6's check and the kernel times, after the main path; the times
+    # --- 7. B6's check and the kernel times, after both paths; the times
     # last of the two (once torch.profiler has traced the card, every later
     # launch in the process pays for the tracing) ------------------------------
     t = time.monotonic()
@@ -412,25 +527,34 @@ def main() -> None:
         emit(line)
     del wide, b6
 
-    # --- 6. profile ------------------------------------------------------------
-    repaired, _ = hard_repair(b5, cfg, DEFAULT_GOAL_ORDER)
+    # --- 8. profile ------------------------------------------------------------
+    goal_names, opts, _ = build_opts("B5", "target")
+    repaired, _ = hard_repair(b5, cfg, goal_names)
     k = PROFILE_STEPS
-    sa_opts = dataclasses.replace(opts.anneal, n_steps=k)
+    single = dataclasses.replace(opts.anneal, n_steps=k, p_swap=0.0)
+    batched = dataclasses.replace(opts.anneal, n_steps=k)
     polish = dataclasses.replace(opts.polish, max_iters=k, patience=k)
-    anneal(repaired, cfg, DEFAULT_GOAL_ORDER, dataclasses.replace(sa_opts, n_steps=1))
+    swap = SwapPolishOptions(n_swap_candidates=64, n_lead_candidates=64, max_iters=k, patience=k)
+    for warm in (single, batched):
+        anneal(repaired, cfg, goal_names, dataclasses.replace(warm, n_steps=1))
     emit({"phase": "profile", "model": "B5 after hard_repair",
-          "anneal": {"steps": k, "moves_per_step": MOVES, **device_busy(
-              lambda: anneal(repaired, cfg, DEFAULT_GOAL_ORDER, sa_opts))},
+          "anneal": {"steps": k, "moves_per_step": single.moves_per_step, "p_swap": 0.0,
+                     **device_busy(lambda: anneal(repaired, cfg, goal_names, single))},
           "polish": {"iters": k, **device_busy(
-              lambda: greedy_optimize(repaired, cfg, DEFAULT_GOAL_ORDER, polish))}})
+              lambda: greedy_optimize(repaired, cfg, goal_names, polish))},
+          "anneal_batched": {"steps": k, "moves_per_step": batched.moves_per_step,
+                             "p_swap": batched.p_swap, **device_busy(
+                                 lambda: anneal(repaired, cfg, goal_names, batched))},
+          "swap_polish": {"iters": k, "candidates": 128, **device_busy(
+              lambda: swap_polish(repaired, cfg, goal_names, swap))}})
 
-    # --- 7. summary lines ------------------------------------------------------
+    # --- 9. summary lines ------------------------------------------------------
     print(smi, flush=True)
     emit({"kernels": [{
         "name": "broker_aggregates", "route": "cuda",
         "source": "ccx_torch/csrc/broker_aggregates.cu",
         "replaces": "ccx/ops/mxu_aggregates.py:210",
-        "launches": launches, "max_abs_err": max_err,
+        "launches": launches["target"], "launches_by_path": launches, "max_abs_err": max_err,
         "ms": times["call_ms"], "device_ms": times["device_ms"],
         "call_ms": times["call_ms"], "host_us": times["host_us"],
         "plain_ms": plain_ms, "bound_ms": times["bound_ms"],

@@ -199,3 +199,64 @@ def test_kernel_wrapper_checks_its_inputs_on_card():
     host = model_from_arrays(arrays, m.num_topics, m.num_racks, "cpu")
     with pytest.raises(ValueError, match="expected cuda"):
         agg_op.broker_aggregates_cuda(m.replace(leader_load=host.leader_load))
+
+
+#: the JAX package's 1/10-scale B5 lean ceilings (tests/test_quality_b5_shape.py),
+#: copied: this file must not import the JAX package
+LEAN_CEILINGS = {
+    "ReplicaDistributionGoal": 10, "PotentialNwOutGoal": 200, "DiskUsageDistributionGoal": 20,
+    "NetworkInboundUsageDistributionGoal": 20, "NetworkOutboundUsageDistributionGoal": 20,
+    "CpuUsageDistributionGoal": 30, "TopicReplicaDistributionGoal": 2000,
+    "LeaderReplicaDistributionGoal": 30, "LeaderBytesInDistributionGoal": 50,
+    "PreferredLeaderElectionGoal": 0,
+}
+
+
+@pytest.mark.gpu
+def test_lean_quality_envelope_on_card():
+    """The lean stages at 1/10 scale of B5 on the card, with the effort of
+    the JAX package's own lean check: verified, hard zero, every tier under
+    its ceilings, replica swaps accepted."""
+    from ccx_torch.goals.base import GoalConfig
+    from ccx_torch.optimizer import OptimizeOptions, optimize
+    from ccx_torch.search.annealer import AnnealOptions
+    from ccx_torch.search.greedy import GreedyOptions
+
+    dev = _card()
+    m = fixtures.random_cluster(fixtures.RandomClusterSpec(
+        n_brokers=100, n_racks=10, n_topics=50, n_partitions=10_000, n_dead_brokers=2, seed=7),
+        device=dev)
+    res = optimize(m, GoalConfig(), opts=OptimizeOptions(
+        anneal=AnnealOptions(n_chains=8, n_steps=200, moves_per_step=8, seed=42),
+        polish=GreedyOptions(n_candidates=256, max_iters=200, patience=16),
+        run_polish=False, run_cold_greedy=False, topic_rebalance_rounds=1,
+        topic_rebalance_max_sweeps=1024, topic_rebalance_move_leaders=True,
+        topic_rebalance_polish_iters=200, leader_pass_max_iters=60,
+        swap_polish_iters=60, swap_polish_post_iters=100,
+    ))
+    assert res.verification.ok, res.verification.failures
+    assert float(res.stack_after.hard_violations) == 0
+    assert res.sa_engine == "batched"
+    after = {n: float(v) for n, (v, _) in res.stack_after.by_name().items()}
+    for goal, ceiling in LEAN_CEILINGS.items():
+        assert after[goal] <= ceiling, (goal, after[goal], ceiling)
+    assert res.move_counters["replicaSwap"]["accepted"] > 0, res.move_counters
+
+
+@pytest.mark.slow
+def test_b5_lean_rung_on_the_cpu():
+    """B5 at the lean rung through the CPU path (the plain aggregates, the
+    CPU generator): verified with zero hard violations. Prints the
+    violations after, for holding the card's B5 lean result against the
+    CPU's (``pytest -s``); minutes of CPU time, so slow."""
+    from ccx_torch.optimizer import optimize
+    from ccx_torch.rungs import build_opts
+
+    goals, opts, _ = build_opts("B5", "lean")
+    m = fixtures.random_cluster(fixtures.bench_spec("B5"), device="cpu")
+    res = optimize(m, opts=opts, goal_names=goals)
+    after = {n: int(v) for n, (v, _) in res.stack_after.by_name().items()}
+    print({"b5_lean_cpu": after, "wall_seconds": res.wall_seconds,
+           "move_counters": res.move_counters, "sa_engine": res.sa_engine})
+    assert res.verification.ok, res.verification.failures
+    assert float(res.stack_after.hard_violations) == 0

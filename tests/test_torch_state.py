@@ -11,6 +11,8 @@ order). ``lex_accept`` gets the very uniform JAX drew from its key.
 
 from __future__ import annotations
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -42,17 +44,26 @@ def carry(jm):
     return model_from_arrays(arrays, jm.num_topics, jm.num_racks, "cpu")
 
 
-def _states(case):
+@functools.cache
+def _jax_states(case):
+    """The JAX side of ``_states`` (immutable, so built once per process)."""
     spec, goals = CASES[case]
     jm = random_cluster(spec)
-    tm = carry(jm)
     max_pt = jst.max_partitions_per_topic(jm)
+    jgroup = jax.jit(jst.make_topic_group, static_argnums=1)(jm, max_pt)
+    js = jax.jit(
+        lambda m, k, g: jst.init_search_state(m, JaxGoalConfig(), goals, k, group=g)
+    )(jm, jax.random.PRNGKey(0), jgroup)
+    return jm, goals, max_pt, jgroup, js
+
+
+def _states(case):
+    jm, goals, max_pt, jgroup, js = _jax_states(case)
+    tm = carry(jm)
     assert tst.max_partitions_per_topic(tm) == max_pt
-    jgroup = jst.make_topic_group(jm, max_pt)
     tgroup = tst.make_topic_group(tm, max_pt)
     np.testing.assert_array_equal(tgroup.members.numpy(), np.asarray(jgroup.members))
     np.testing.assert_array_equal(tgroup.member_slot.numpy(), np.asarray(jgroup.member_slot))
-    js = jst.init_search_state(jm, JaxGoalConfig(), goals, jax.random.PRNGKey(0), group=jgroup)
     ts = tst.init_search_state(tm, GoalConfig(), goals, group=tgroup)
     return jm, tm, goals, jgroup, tgroup, js, ts
 
