@@ -12,11 +12,23 @@ proposals, in the JAX package's stages and order:
     swap-polish-post -> finalize_preferred_leaders -> columnar_diff ->
     verify_optimization
 
+With ``warm_start`` (a ``ccx_torch.search.incremental.WarmStart``) and
+``opts.incremental`` armed, ``optimize`` runs the warm pipeline instead:
+the previous placement grafted onto the snapshot's metrics, a short
+drift-targeted descent (repair and a plateau-terminated warm SA first when
+the drift holds structural damage), preferred-leader finalize, the minimal
+diff and the same verification; a warm result never ships lexicographically
+behind its own base, nor unverified while its base verifies. When the base
+cannot be applied it falls back to the cold pipeline and says why in
+``OptimizerResult.incremental``. With ``plan_enabled`` every result carries
+a wave-scheduled movement plan of its diff (``ccx_torch.search.movement``),
+and ``plan_cost_tier`` breaks a lexicographic tie in the portfolio toward
+the placement that moves fewer bytes.
+
 It runs on the model's device (build the model on CUDA, the default, or pass
 ``device="cpu"`` to the model builder). ``OptimizeOptions`` carries the JAX
 package's defaults for every field it has. The JAX package's repair
-backends and overlap, warm pipeline, movement plan, device mesh and the
-movement-cost adoption tier are not part of this pipeline.
+backends and overlap and its device mesh are not part of this pipeline.
 """
 
 from __future__ import annotations
@@ -33,6 +45,7 @@ from ccx_torch.model.tensor_model import TensorClusterModel
 from ccx_torch.proposals import ColumnarDiff, columnar_diff
 from ccx_torch.search.annealer import AnnealOptions, allows_inter_broker, anneal, hot_partition_list
 from ccx_torch.search.greedy import GreedyOptions, SwapPolishOptions, greedy_optimize, swap_polish
+from ccx_torch.search.incremental import ColdStartRequired, IncrementalOptions, WarmStart
 from ccx_torch.search.repair import finalize_preferred_leaders, hard_repair, topic_rebalance
 from ccx_torch.search.state import MOVE_KIND_NAMES
 from ccx_torch.verify import Verification, verify_optimization
@@ -84,6 +97,23 @@ class OptimizeOptions:
     #: also run a plain greedy from the input and keep the lexicographic
     #: winner (the portfolio)
     run_cold_greedy: bool = True
+    #: the warm pipeline's knobs (``optimize(warm_start=...)``); inert on
+    #: cold runs
+    incremental: IncrementalOptions = dataclasses.field(default_factory=IncrementalOptions)
+    #: wave-schedule the diff into a movement plan (``OptimizerResult.plan``)
+    plan_enabled: bool = False
+    #: break a lexicographic tie in the portfolio by (bytes moved, peak
+    #: per-broker inflow) from the input placement
+    plan_cost_tier: bool = False
+    #: waves of the plan's per-wave state
+    plan_max_waves: int = 64
+    #: per-broker concurrent moves per wave
+    plan_broker_cap: int = 5
+    #: per-broker per-wave byte budget in model load units (MB); <= 0:
+    #: uncapped
+    plan_wave_bytes_mb: float = 0.0
+    #: replication rate that prices the waves in seconds; <= 0: byte units
+    plan_throttle_mb_per_sec: float = 0.0
 
 
 @dataclasses.dataclass
@@ -102,6 +132,19 @@ class OptimizerResult:
     move_counters: dict = dataclasses.field(default_factory=dict)
     #: the SA step engine that ran (``annealer.step_engine``)
     sa_engine: str = ""
+    #: warm runs, and cold runs that were asked to start warm: the warm
+    #: pipeline's report or the reason it fell back
+    incremental: dict | None = None
+    #: ``{"goals": [...], "phases": {phase: [segment, ...]}}``: the decoded
+    #: convergence taps of every chunked engine run, by pipeline phase
+    convergence: dict | None = None
+    #: warm runs: the float32[6, B] pressure stack of the shipped placement
+    #: under the shipped metrics, for the next window's ``remember``
+    warm_pressure: torch.Tensor | None = None
+    #: the movement plan of the diff (``plan_enabled``)
+    plan: object | None = None
+    #: the input model
+    input_model: TensorClusterModel | None = None
 
     @property
     def num_replica_movements(self) -> int:
@@ -126,9 +169,86 @@ def _lex_better(a: StackResult, b: StackResult) -> bool:
     return False
 
 
+def _movement_lex_better(a_stack, a_model, b_stack, b_model, m, opts: OptimizeOptions) -> bool:
+    """``_lex_better`` with the movement-cost tier appended: only a full
+    lexicographic tie falls through to (bytes moved, peak per-broker
+    inflow) of each candidate from the input ``m``. With
+    ``plan_cost_tier`` off this is ``_lex_better``."""
+    if _lex_better(a_stack, b_stack):
+        return True
+    if not opts.plan_cost_tier or _lex_better(b_stack, a_stack):
+        return False
+    from ccx_torch.search.movement import movement_cost
+
+    tol = 1e-6
+    for x, y in zip(movement_cost(m, a_model), movement_cost(m, b_model)):
+        if x < y - tol:
+            return True
+        if x > y + tol:
+            return False
+    return False
+
+
+def _compute_plan(m: TensorClusterModel, dcols: ColumnarDiff, opts: OptimizeOptions):
+    """The plan phase: wave-schedule the shipped diff under the executor's
+    caps (``ccx_torch.search.movement``). A failure propagates."""
+    from ccx_torch.common.resources import Resource
+    from ccx_torch.search.movement import PlanOptions, plan_movement
+
+    return plan_movement(
+        dcols,
+        m.leader_load[Resource.DISK],
+        int(m.B),
+        PlanOptions(
+            broker_cap=opts.plan_broker_cap,
+            wave_bytes=opts.plan_wave_bytes_mb,
+            max_waves=opts.plan_max_waves,
+            throttle_mb_per_sec=opts.plan_throttle_mb_per_sec,
+        ),
+    )
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+class _Run:
+    """The bookkeeping one pipeline run shares between its stages: phase
+    seconds (each phase ended by a device synchronize), the per-move-kind
+    counters and the convergence segments by phase."""
+
+    def __init__(self, device: torch.device) -> None:
+        self.device = device
+        self.phases: dict[str, float] = {}
+        self.kind_prop = [0, 0, 0]
+        self.kind_acc = [0, 0, 0]
+        self.conv_phases: dict[str, list] = {}
+
+    def tally(self, r, phase: str | None = None) -> None:
+        for i in range(3):
+            self.kind_prop[i] += int(r.n_prop_kind[i])
+            self.kind_acc[i] += int(r.n_acc_kind[i])
+        if phase is not None and getattr(r, "convergence", None):
+            self.conv_phases.setdefault(phase, []).append(r.convergence)
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        start = time.monotonic()
+        yield
+        _sync(self.device)
+        self.phases[name] = time.monotonic() - start
+
+    def move_counters(self) -> dict:
+        return {
+            name: {"proposed": self.kind_prop[i], "accepted": self.kind_acc[i]}
+            for i, name in enumerate(MOVE_KIND_NAMES)
+        }
+
+    def convergence(self, goal_names) -> dict | None:
+        if not self.conv_phases:
+            return None
+        return {"goals": list(goal_names), "phases": self.conv_phases}
 
 
 def optimize(
@@ -136,27 +256,35 @@ def optimize(
     cfg: GoalConfig = GoalConfig(),
     goal_names: tuple[str, ...] = DEFAULT_GOAL_ORDER,
     opts: OptimizeOptions = OptimizeOptions(),
+    warm_start: WarmStart | None = None,
 ) -> OptimizerResult:
     """Full-stack proposal computation: hard-goal repair sweeps establish
     feasibility, batched SA balances the soft goals without breaking hard
     ones, greedy polish and leadership passes clean up residuals, and the
-    result is diffed and verified."""
+    result is diffed and verified. With ``warm_start`` and
+    ``opts.incremental`` armed, the warm pipeline (module docstring)."""
+    warm = warm_start if (warm_start is not None and opts.incremental.armed) else None
+    if warm is not None:
+        try:
+            return _optimize_warm(m, cfg, goal_names, opts, warm)
+        except ColdStartRequired as e:
+            res = _optimize(m, cfg, goal_names, opts)
+            return dataclasses.replace(
+                res, incremental={"warmStart": False, "coldStart": True, "reason": str(e)}
+            )
+    return _optimize(m, cfg, goal_names, opts)
+
+
+def _optimize(
+    m: TensorClusterModel,
+    cfg: GoalConfig,
+    goal_names: tuple[str, ...],
+    opts: OptimizeOptions,
+) -> OptimizerResult:
+    """The cold pipeline (module docstring)."""
     t0 = time.monotonic()
-    phases: dict[str, float] = {}
-    kind_prop = [0, 0, 0]
-    kind_acc = [0, 0, 0]
-
-    def tally(r) -> None:
-        for i in range(3):
-            kind_prop[i] += int(r.n_prop_kind[i])
-            kind_acc[i] += int(r.n_acc_kind[i])
-
-    @contextlib.contextmanager
-    def phase(name: str):
-        start = time.monotonic()
-        yield
-        _sync(m.device)
-        phases[name] = time.monotonic() - start
+    run = _Run(m.device)
+    phase, tally = run.phase, run.tally
 
     inter = allows_inter_broker(goal_names)
     with phase("stack-before"):
@@ -167,12 +295,12 @@ def optimize(
         evac = hot_partition_list(model, goal_names, cfg) if inter else None
     with phase("anneal"):
         sa = anneal(model, cfg, goal_names, opts.anneal, evac=evac)
-    tally(sa)
+    tally(sa, "anneal")
     model, stack_after = sa.model, sa.stack_after
     with phase("polish"):
         if opts.run_polish:
             polish = greedy_optimize(model, cfg, goal_names, opts.polish)
-            tally(polish)
+            tally(polish, "polish")
             model, stack_after = polish.model, polish.stack_after
             n_polish += polish.n_moves
         # the repair retries run with the polish off too
@@ -187,7 +315,7 @@ def optimize(
                 stack_after = evaluate_stack(model, cfg, goal_names)
                 continue
             polish = greedy_optimize(model, cfg, goal_names, opts.polish)
-            tally(polish)
+            tally(polish, "polish")
             if polish.n_moves == 0 and n_r == 0:
                 break
             model, stack_after = polish.model, polish.stack_after
@@ -195,8 +323,8 @@ def optimize(
     if opts.run_cold_greedy:
         with phase("portfolio"):
             cold = greedy_optimize(m, cfg, goal_names, opts.polish)
-            tally(cold)
-            if _lex_better(cold.stack_after, stack_after):
+            tally(cold, "portfolio")
+            if _movement_lex_better(cold.stack_after, cold.model, stack_after, model, m, opts):
                 model, stack_after = cold.model, cold.stack_after
                 # the result is the cold run's, started from the input
                 n_polish = cold.n_moves
@@ -219,10 +347,10 @@ def optimize(
                 cand = greedy_optimize(
                     swept, cfg, goal_names, repolish, trd_guard=opts.topic_rebalance_guarded
                 )
-                tally(cand)
+                tally(cand, "topic-rebalance")
                 if opts.topic_rebalance_guarded and not _lex_better(cand.stack_after, stack_after):
                     cand = greedy_optimize(swept, cfg, goal_names, repolish)
-                    tally(cand)
+                    tally(cand, "topic-rebalance")
                 if not _lex_better(cand.stack_after, stack_after):
                     break
                 model, stack_after = cand.model, cand.stack_after
@@ -238,7 +366,7 @@ def optimize(
                 trd_guard=opts.swap_polish_guarded,
                 chunk_iters=opts.swap_polish_chunk_iters,
             ))
-            tally(sp)
+            tally(sp, name)
         return sp
 
     if opts.swap_polish_iters > 0 and inter:
@@ -254,7 +382,7 @@ def optimize(
                 model, cfg, goal_names,
                 dataclasses.replace(opts.polish, leadership_only=True, max_iters=iters),
             )
-            tally(lead)
+            tally(lead, "leader-pass")
             model, stack_after = lead.model, lead.stack_after
             n_polish += lead.n_moves
     if opts.swap_polish_post_iters > 0 and inter:
@@ -265,6 +393,10 @@ def optimize(
         model, stack_after, _ = finalize_preferred_leaders(model, cfg, goal_names, stack_after)
     with phase("diff"):
         dcols = columnar_diff(m, model)
+    plan = None
+    if opts.plan_enabled:
+        with phase("plan"):
+            plan = _compute_plan(m, dcols, opts)
     with phase("verify"):
         verification = verify_optimization(
             m, model, cfg, goal_names,
@@ -284,10 +416,103 @@ def optimize(
         wall_seconds=time.monotonic() - t0,
         n_sa_accepted=sa.n_accepted,
         n_polish_moves=n_polish,
-        phase_seconds=phases,
-        move_counters={
-            name: {"proposed": kind_prop[i], "accepted": kind_acc[i]}
-            for i, name in enumerate(MOVE_KIND_NAMES)
-        },
+        phase_seconds=run.phases,
+        move_counters=run.move_counters(),
         sa_engine=sa.engine,
+        convergence=run.convergence(goal_names),
+        plan=plan,
+        input_model=m,
+    )
+
+
+def _optimize_warm(
+    m: TensorClusterModel,
+    cfg: GoalConfig,
+    goal_names: tuple[str, ...],
+    opts: OptimizeOptions,
+    warm: WarmStart,
+) -> OptimizerResult:
+    """The warm pipeline: ``incremental.reoptimize``'s search, preferred-
+    leader finalize, one fused evaluation of the final placement (with the
+    next window's pressure bank), the revert guards, the minimal diff, the
+    verification and the plan. Raises ``ColdStartRequired`` when the warm
+    base cannot be applied."""
+    from ccx_torch.search import incremental as inc
+
+    t0 = time.monotonic()
+    run = _Run(m.device)
+    phase = run.phase
+    inter = allows_inter_broker(goal_names)
+    (model, stack_before, stack_after, search, info, base_model, bank_press,
+     n_engine_moves) = inc.reoptimize(
+        m, warm, cfg, goal_names, opts.incremental, opts, phase=phase, tally=run.tally,
+    )
+    with phase("preferred-leader"):
+        model, stack_after, _ = finalize_preferred_leaders(
+            model, cfg, goal_names, stack_after, reevaluate=False
+        )
+    if stack_after is None:
+        with phase("warm-finish"):
+            stack_after, bank_press = inc.warm_finish(model, cfg, goal_names)
+    # never ship a warm result significantly lex-behind its own (repaired)
+    # base: the base is then the better proposal
+    if inc._significantly_lex_worse(stack_after, stack_before):
+        model = base_model
+        stack_after = stack_before
+        bank_press = None  # scanned off the unshipped model
+        n_engine_moves = 0
+        info["reverted"] = "lex"
+    with phase("diff"):
+        dcols = columnar_diff(m, model)
+    with phase("verify"):
+        verification = verify_optimization(
+            m, model, cfg, goal_names,
+            proposals=dcols,
+            check_evacuation=inter,
+            stack_before=stack_before,
+            stack_after=stack_after,
+        )
+        if not verification.ok:
+            # a lex-legitimate trade the per-goal verifier rejects: ship the
+            # (repaired) base, whose diff is the no-op or repair-only plan,
+            # when it verifies
+            base_diff = columnar_diff(m, base_model)
+            base_verification = verify_optimization(
+                m, base_model, cfg, goal_names,
+                proposals=base_diff,
+                check_evacuation=inter,
+                stack_before=stack_before,
+                stack_after=stack_before,
+            )
+            if base_verification.ok:
+                model = base_model
+                stack_after = stack_before
+                dcols = base_diff
+                verification = base_verification
+                bank_press = None
+                n_engine_moves = 0
+                info["reverted"] = "verification"
+    plan = None
+    if opts.plan_enabled:
+        # every warm window plans its own diff, after any revert
+        with phase("plan"):
+            plan = _compute_plan(m, dcols, opts)
+    info["diffSize"] = dcols.n
+    return OptimizerResult(
+        diff=dcols,
+        stack_before=stack_before,
+        stack_after=stack_after,
+        verification=verification,
+        model=model,
+        wall_seconds=time.monotonic() - t0,
+        n_sa_accepted=getattr(search, "n_accepted", 0),
+        n_polish_moves=n_engine_moves,
+        phase_seconds=run.phases,
+        move_counters=run.move_counters(),
+        sa_engine=getattr(search, "engine", ""),
+        incremental=info,
+        convergence=run.convergence(goal_names),
+        warm_pressure=bank_press,
+        plan=plan,
+        input_model=m,
     )

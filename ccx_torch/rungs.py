@@ -15,16 +15,22 @@ budget and the pipeline stages:
   portfolio) at the largest effort; ``custom`` equals ``lean``'s stages
   with ``full``'s effort and the portfolio on.
 
+``steady_options`` is the bench's steady-state warm budget and
+``drift_metrics`` its drift rule for one metrics window.
+
 The bench's environment overrides (chains, steps, moves, polish iterations,
 the portfolio switch) and its device mesh are not part of this copy.
 """
 
 from __future__ import annotations
 
+import numpy as np
+
 from ccx_torch.goals.stack import DEFAULT_GOAL_ORDER
 from ccx_torch.optimizer import OptimizeOptions
 from ccx_torch.search.annealer import AnnealOptions
 from ccx_torch.search.greedy import GreedyOptions
+from ccx_torch.search.incremental import IncrementalOptions
 
 #: rung name -> (chains, steps, moves_per_step, polish_iters)
 RUNGS = {
@@ -60,7 +66,12 @@ def build_opts(name: str, rung: str) -> tuple[tuple[str, ...], OptimizeOptions, 
     else:
         stages = {}
     opts = OptimizeOptions(
-        anneal=AnnealOptions(n_chains=n_chains, n_steps=n_steps, moves_per_step=moves, seed=42),
+        # chunks of 250 steps (one tap row each) except at the smoke rung;
+        # a flat chunked run equals the one-loop run
+        anneal=AnnealOptions(
+            n_chains=n_chains, n_steps=n_steps, moves_per_step=moves, seed=42,
+            chunk_steps=0 if rung == "smoke" else 250,
+        ),
         polish=GreedyOptions(
             n_candidates=256, max_iters=polish_iters, patience=8 if rung == "target" else 16
         ),
@@ -76,3 +87,29 @@ def build_opts(name: str, rung: str) -> tuple[tuple[str, ...], OptimizeOptions, 
         "p_swap": opts.anneal.p_swap,
     }
     return goal_names, opts, effort
+
+
+def steady_options(enabled: bool = True) -> IncrementalOptions:
+    """The steady rung's warm budget (the bench's ``_steady_options``): 8
+    swap-polish iterations with patience 3 over 32 candidates; on
+    structural damage 100 warm SA steps in chunks of 25 on 2 chains with 8
+    moves, stopped by a plateau window of 1 chunk."""
+    return IncrementalOptions(
+        enabled=enabled,
+        warm_swap_iters=8, warm_swap_patience=3, warm_swap_candidates=32,
+        warm_steps=100, warm_chunk_steps=25, warm_chains=2,
+        warm_moves_per_step=8, plateau_window=1,
+    )
+
+
+def drift_metrics(arrays: dict, rng, p_real: int, n_drift: int) -> dict:
+    """One metrics window (the bench's drift rule): ``n_drift`` of the first
+    ``p_real`` partitions' leader loads, then their follower loads, scaled
+    by factors drawn uniform in [0.5, 1.5) (one per partition and role)."""
+    new = dict(arrays)
+    idx = rng.choice(p_real, n_drift, replace=False)
+    for field in ("leader_load", "follower_load"):
+        a = np.asarray(arrays[field], np.float32).copy()
+        a[:, idx] *= rng.uniform(0.5, 1.5, size=(1, n_drift)).astype(np.float32)
+        new[field] = a
+    return new

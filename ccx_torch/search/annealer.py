@@ -28,11 +28,20 @@ Every random number comes from the caller's ``torch.Generator`` through the
 ``draw_*`` functions; the plan and accept functions take those draws as
 tensors, so a test can hand them exactly the draws another implementation
 made.
+
+With ``chunk_steps > 0`` the steps run in chunks through ``drive_chunks``:
+each chunk ends with one convergence-tap row (``ccx_torch.search.telemetry``),
+the plateau exit (``plateau_window``) reads that row at the chunk boundary,
+and ``n_temps > 1`` arms the replica-exchange ladder, which permutes whole
+chains between temperature rungs at chunk boundaries
+(``exchange_permutation``). Chunking draws nothing and changes no step, so a
+chunked run with ``n_temps=1`` equals the one-loop run exactly.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 
 import numpy as np
 import torch
@@ -108,6 +117,20 @@ class AnnealOptions:
     #: usage
     swap_coupling: float = 0.5
     couple_pool: int = 4
+    #: > 0: run the steps in chunks of this many through ``drive_chunks``
+    #: (one tap row per chunk; the plateau exit and the ladder act at chunk
+    #: boundaries); 0: one loop
+    chunk_steps: int = 0
+    #: > 0 (chunked, taps on): stop once this many consecutive chunks fail
+    #: to lex-improve the tap's current row
+    plateau_window: int = 0
+    #: > 1 (chunked): the replica-exchange ladder's temperature rungs. Rung 0
+    #: cools on the ``t0 -> t1`` schedule, rung K-1 holds at ``t0``, the
+    #: rungs between end on a geometric ladder; neighbouring rungs exchange
+    #: whole chains at chunk boundaries
+    n_temps: int = 1
+    #: chunk boundaries between exchange sweeps under the ladder
+    exchange_interval: int = 1
     #: rank the coupled pools' scores in bfloat16 (rank-order only; costs
     #: and acceptance stay float32)
     bf16_scoring: bool = False
@@ -127,6 +150,12 @@ class AnnealResult:
     n_acc_kind: tuple[int, ...] = (0, 0, 0)
     #: the step engine that ran (``step_engine``)
     engine: str = "single"
+    #: decoded convergence segment (``telemetry.decode``) of a chunked run
+    #: with taps on, else None
+    convergence: dict | None = None
+    #: plateau-exit report (``PlateauExit.to_json``) when ``plateau_window``
+    #: was armed, else None
+    plateau: dict | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -199,6 +228,40 @@ def _evac_bucket(P: int) -> int:
     return min(P, max(1024, P // 16))
 
 
+def _structural_hot(m: TensorClusterModel, goal_names: tuple[str, ...]) -> torch.Tensor:
+    """bool[P]: partitions with a replica on a dead broker (inter-broker
+    stacks) or a dead disk, or with a rack duplicate (stacks with a rack
+    goal)."""
+    a = m.assignment
+    valid = m.replica_valid
+    safe_b = a.clamp(0, m.B - 1).long()
+    hot = torch.zeros(m.P, dtype=torch.bool, device=m.device)
+    if allows_inter_broker(goal_names):
+        hot |= (valid & ~m.broker_ok[safe_b]).any(1)
+    rd = m.replica_disk
+    hot |= (valid & (rd >= 0) & ~m.disk_alive[safe_b, rd.clamp(0, m.D - 1).long()]).any(1)
+    if RACK_TARGET_GOALS & set(goal_names):
+        slots = torch.arange(m.R, device=m.device)
+        racks = torch.where(valid, m.broker_rack[safe_b], -1 - slots[None, :].int())
+        dup = (racks[:, :, None] == racks[:, None, :]) & (slots[:, None] < slots[None, :])
+        hot |= dup.any(2).any(1) & m.partition_valid
+    return hot
+
+
+def _capacity_hot(m: TensorClusterModel, cfg: GoalConfig | None) -> torch.Tensor:
+    """bool[P]: partitions with a replica on a live broker above its
+    effective capacity (one aggregates launch)."""
+    cap = effective_capacity(m, (cfg or GoalConfig()).capacity_threshold)
+    load = broker_aggregates(m).broker_load
+    util = torch.where(cap > 0, load / torch.where(cap > 0, cap, 1.0), 0.0).amax(0)
+    over_b = m.broker_ok & (util > 1.0)
+    return (m.replica_valid & over_b[m.assignment.clamp(0, m.B - 1).long()]).any(1)
+
+
+def _scores_capacity(goal_names: tuple[str, ...]) -> bool:
+    return allows_inter_broker(goal_names) and bool(CAPACITY_GOALS & set(goal_names))
+
+
 def hot_partition_list(
     m: TensorClusterModel,
     goal_names: tuple[str, ...] = (),
@@ -210,27 +273,9 @@ def hot_partition_list(
     capacity, partitions with a replica on a broker above effective
     capacity. Returns (sorted ids int32, padded to ``_evac_bucket(P)`` —
     or to P when more offenders exist — and their count)."""
-    a = m.assignment
-    valid = m.replica_valid
-    safe_b = a.clamp(0, m.B - 1).long()
-    hot = torch.zeros(m.P, dtype=torch.bool, device=m.device)
-    inter = allows_inter_broker(goal_names)
-    if inter:
-        hot |= (valid & ~m.broker_ok[safe_b]).any(1)
-    rd = m.replica_disk
-    dead_disk = valid & (rd >= 0) & ~m.disk_alive[safe_b, rd.clamp(0, m.D - 1).long()]
-    hot |= dead_disk.any(1)
-    if RACK_TARGET_GOALS & set(goal_names):
-        slots = torch.arange(m.R, device=m.device)
-        racks = torch.where(valid, m.broker_rack[safe_b], -1 - slots[None, :].int())
-        dup = (racks[:, :, None] == racks[:, None, :]) & (slots[:, None] < slots[None, :])
-        hot |= dup.any(2).any(1) & m.partition_valid
-    if inter and CAPACITY_GOALS & set(goal_names) and not bool(hot.any()):
-        cap = effective_capacity(m, (cfg or GoalConfig()).capacity_threshold)
-        load = broker_aggregates(m).broker_load
-        util = torch.where(cap > 0, load / torch.where(cap > 0, cap, 1.0), 0.0).amax(0)
-        over_b = m.broker_ok & (util > 1.0)
-        hot |= (valid & over_b[safe_b]).any(1)
+    hot = _structural_hot(m, goal_names)
+    if _scores_capacity(goal_names) and not bool(hot.any()):
+        hot = _capacity_hot(m, cfg)
     idx = torch.nonzero(hot)[:, 0].int()
     n = idx.numel()
     bucket = _evac_bucket(m.P)
@@ -238,6 +283,27 @@ def hot_partition_list(
     out = torch.zeros(size, dtype=torch.int32, device=m.device)
     out[:n] = idx
     return out, n
+
+
+def hot_partition_list_device(
+    m: TensorClusterModel,
+    goal_names: tuple[str, ...] = (),
+    cfg: GoalConfig | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``hot_partition_list`` with no host read: (the lowest offender ids in
+    ascending order, 0-padded to ``_evac_bucket(P)``, int32; their count, an
+    int32 tensor). The same selection rules, the capacity scan always
+    launched; more offenders than the bucket holds keep the lowest ids."""
+    hot = _structural_hot(m, goal_names)
+    if _scores_capacity(goal_names):
+        hot = torch.where(hot.any(), hot, _capacity_hot(m, cfg))
+    bucket = _evac_bucket(m.P)
+    # a stable sort puts the offenders first, in id order: no data-dependent
+    # shape, so no host read
+    order = torch.argsort((~hot).to(torch.uint8), stable=True)[:bucket]
+    n = hot.sum().clamp(max=bucket).int()
+    idx = torch.where(torch.arange(bucket, device=m.device) < n, order, 0).int()
+    return idx, n
 
 
 # --------------------------------------------------------------------------
@@ -617,7 +683,7 @@ def lex_accept(
     new_vec: torch.Tensor,      # float32[K, G]
     hard_arr: torch.Tensor,     # bool[G]
     weights: torch.Tensor,      # float32[G] tier weights
-    temperature: float,
+    temperature: float | torch.Tensor,  # one, or float32[K] per candidate
     u: torch.Tensor,            # float32[K] uniform in [1e-12, 1)
 ) -> torch.Tensor:
     """Vector-lexicographic SA acceptance (see module docstring)."""
@@ -628,14 +694,24 @@ def lex_accept(
     lex_lt = any_sig & (d.gather(-1, first)[..., 0] < 0)
     hard_up = (sig & hard_arr & (d > 0)).any(-1)
     soft_d = torch.where(hard_arr, 0.0, d * weights).sum(-1)
-    metropolis = torch.log(u) < (-soft_d / max(temperature, 1e-30))
+    if torch.is_tensor(temperature):
+        t = temperature.clamp(min=1e-30)
+    else:
+        t = max(temperature, 1e-30)
+    metropolis = torch.log(u) < (-soft_d / t)
     return ~hard_up & (lex_lt | ~any_sig | metropolis)
+
+
+def _chain_temp(temperature, chain: torch.Tensor):
+    """The temperature of each candidate's chain: the one temperature of a
+    flat run, or a ladder's per-chain temperatures gathered by chain."""
+    return temperature[chain.long()] if torch.is_tensor(temperature) else temperature
 
 
 def _anneal_step(
     state: SearchState,
     gen: torch.Generator,
-    temperature: float,
+    temperature: float | torch.Tensor,
     evac: torch.Tensor,
     n_evac: int,
     *,
@@ -705,7 +781,7 @@ def _pick(use: torch.Tensor, a, b):
 def _unified_move(
     state: SearchState,
     d: UnifiedDraws,
-    temperature: float,
+    temperature: float | torch.Tensor,
     swap_share: float,
     evac: torch.Tensor,
     n_evac: int,
@@ -843,7 +919,7 @@ def _lex_not_worse(vec: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
 def _anneal_step_batched(
     state: SearchState,
     d: BatchedDraws,
-    temperature: float,
+    temperature: float | torch.Tensor,
     swap_share: float,
     evac: torch.Tensor,
     n_evac: int,
@@ -933,7 +1009,9 @@ def _anneal_step_batched(
     feas = torch.where(use_swap, ok_w, feas_s)
     deltas = swap_scorer(state, chain, va, olda, newa, vb, oldb, newb)
     base = state.cost_vec
-    accept = feas & lex_accept(base[chain], deltas.cost_vec, hard_arr, weights, temperature, d.u_acc)
+    accept = feas & lex_accept(
+        base[chain], deltas.cost_vec, hard_arr, weights, _chain_temp(temperature, chain), d.u_acc
+    )
 
     # --- disjoint selection in draw order --------------------------------
     bmask = broker_masks(torch.cat([olda[0], newa[0], oldb[0], newb[0]], dim=1), B).view(C, K, B)
@@ -1085,12 +1163,245 @@ def step_kwargs(
     return kw
 
 
+# --------------------------------------------------------------------------
+# Chunked drives, the plateau exit and the replica-exchange ladder
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class PlateauExit:
+    """Plateau-terminated budget for one ``drive_chunks`` call.
+
+    ``row(carry)`` returns the convergence tap's current row (the lex-best
+    cost vector the chunk just wrote); ``drive_chunks`` reads it at each chunk
+    boundary, so the decision always describes the chunk that just ran,
+    never the one before it. ``window`` and ``min_chunks`` are host data.
+    ``drive_chunks`` fills in the result fields; ``chunks_run`` and
+    ``last_improved_chunk`` are both 1-based ordinals."""
+
+    row: object
+    window: int = 1
+    min_chunks: int = 1
+    exited: bool = False
+    chunks_run: int = 0
+    last_improved_chunk: int = 0
+
+    def to_json(self, budget_chunks: int | None = None) -> dict:
+        out = {
+            "exited": bool(self.exited),
+            "chunksRun": int(self.chunks_run),
+            "window": int(self.window),
+            "lastImprovedChunk": int(self.last_improved_chunk),
+        }
+        if budget_chunks is not None:
+            out["chunksBudget"] = int(budget_chunks)
+        return out
+
+
+def _row_values(row) -> list[float]:
+    """A tap row as floats; a row that is not a sequence of numbers raises
+    TypeError or ValueError. Reading a device row is the host sync."""
+    if torch.is_tensor(row):
+        row = row.tolist()
+    return [float(x) for x in row]
+
+
+def drive_chunks(run_one, carry, *, total: int, chunk: int, plateau: PlateauExit | None = None):
+    """Call ``run_one(carry, off)`` once per chunk offset of ``range(0,
+    total, chunk)``, threading the carry through. ``run_one`` returns
+    ``(carry, done)``; a truthy ``done`` (the descents' stop flag, read
+    here: one host read per chunk) ends the loop. SA chunks return None and
+    are never read.
+
+    ``plateau`` arms the plateau-terminated budget: after each chunk the
+    drive reads ``plateau.row(carry)`` and stops once ``plateau.window``
+    consecutive chunks fail to lex-improve on the best row so far
+    (``ccx_torch.common.convergence.lex_improved``), and not before
+    ``plateau.min_chunks`` chunks. A row that is not a sequence of numbers
+    drops the plateau exit and the drive runs its fixed budget; an error
+    from the read itself (a failed device op) propagates."""
+    from ccx_torch.common.convergence import lex_improved
+
+    step = max(int(chunk), 1)
+    n = max(int(total), 0)
+    best_vec = None
+    since_improve = 0
+    for i, off in enumerate(range(0, n, step)):
+        carry, done = run_one(carry, off)
+        done_plateau = False
+        if plateau is not None:
+            row = plateau.row(carry)
+            try:
+                vec = _row_values(row)
+            except (TypeError, ValueError):
+                plateau = None
+            else:
+                plateau.chunks_run = i + 1
+                if best_vec is None or lex_improved(vec, best_vec):
+                    best_vec = list(vec)
+                    since_improve = 0
+                    plateau.last_improved_chunk = i + 1
+                else:
+                    since_improve += 1
+                done_plateau = (
+                    i + 1 >= max(plateau.min_chunks, 1)
+                    and since_improve >= max(plateau.window, 1)
+                )
+                plateau.exited = done_plateau and off + step < n
+        if done is not None and bool(done):
+            break
+        if done_plateau:
+            break
+    return carry
+
+
+def ladder_rungs(n_temps: int, n_chains: int) -> np.ndarray:
+    """int32[n_chains] rung of each chain: equal contiguous blocks of
+    ``n_chains // K`` chains, rung 0 coldest; remainder chains fold into the
+    hottest rung and sit outside the exchange pairing."""
+    K = max(int(n_temps), 1)
+    size = max(int(n_chains) // K, 1)
+    return np.minimum(np.arange(int(n_chains)) // size, K - 1).astype(np.int32)
+
+
+def ladder_fracs(n_temps: int, n_chains: int) -> np.ndarray:
+    """float32[n_chains] decay-exponent fraction of each chain: rung k cools
+    as ``t0 * decay**(t * (1 - k/(K-1)))`` — rung 0 the flat schedule, rung
+    K-1 holding at ``t0``."""
+    K = max(int(n_temps), 1)
+    if K == 1:
+        return np.ones(int(n_chains), np.float32)
+    rung = ladder_rungs(K, n_chains).astype(np.float64)
+    return (1.0 - rung / (K - 1)).astype(np.float32)
+
+
+def ladder_end_temps(opts: AnnealOptions) -> list[float]:
+    """End-of-schedule temperature of each rung (for the report)."""
+    K = max(int(opts.n_temps), 1)
+    if K == 1:
+        return [float(opts.t1)]
+    return [float(opts.t1 ** (1.0 - k / (K - 1)) * opts.t0 ** (k / (K - 1))) for k in range(K)]
+
+
+def _lex_lt_rows(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+    """bool[n]: row ``a[i]`` lexicographically beats ``b[i]`` under the
+    ``goal_tols`` rule, optionally over the goals in ``mask`` only."""
+    d = a - b
+    sig = d.abs() > goal_tols(b)
+    if mask is not None:
+        sig = sig & mask[None, :]
+    first = sig.int().argmax(1, keepdim=True)
+    return sig.any(1) & (d.gather(1, first)[:, 0] < 0)
+
+
+def draw_exchange(gen: torch.Generator, n: int, device) -> torch.Tensor:
+    """The Metropolis uniforms of one exchange sweep, in [1e-12, 1)."""
+    return _uniform(gen, (n,), device, 1e-12)
+
+
+def exchange_permutation(
+    cost_vec: torch.Tensor,     # float32[n, G] per-chain lex cost vectors
+    temps: torch.Tensor,        # float32[n] per-chain current temperature
+    u: torch.Tensor,            # float32[n] in [1e-12, 1) (``draw_exchange``)
+    *,
+    n_temps: int,
+    hard_arr: torch.Tensor,     # bool[G]
+    weights: torch.Tensor,      # float32[G] soft tier weights
+    parity: int,                # 0: pair rungs (0,1),(2,3)...; 1: (1,2),(3,4)...
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One replica-exchange sweep as a permutation of the chain axis.
+
+    Rung r chain j pairs with rung r+1 chain j (alternating pairings by
+    ``parity``). Each pair swaps whole chain states or stays; the decision,
+    taken at the cold member, is: (1) where the hard tiers differ
+    significantly, swap iff the hot member is hard-lex-better; (2) else
+    where the soft scalars differ, Metropolis ``log u < (1/T_cold -
+    1/T_hot) * (E_cold - E_hot)``; (3) else swap iff the hot member is
+    lex-better. The lex-best chain is never moved hotter and always moved
+    colder. Returns ``(perm int64[n], attempted, accepted)`` (tensors);
+    ``perm`` is an involution."""
+    n, G = cost_vec.shape
+    dev = cost_vec.device
+    K = max(int(n_temps), 1)
+    size = max(n // K, 1)
+    idx = torch.arange(n, device=dev)
+    rung = (idx // size).clamp(max=K - 1)
+    in_ladder = idx < K * size
+    low = ((rung - parity) % 2) == 0
+    partner_rung = torch.where(low, rung + 1, rung - 1)
+    valid = in_ladder & (partner_rung >= 0) & (partner_rung < K)
+    partner = torch.where(valid, partner_rung.clamp(0, K - 1) * size + idx % size, idx)
+
+    soft_w = torch.where(hard_arr, 0.0, weights)
+    E = cost_vec @ soft_w
+    cv_p = cost_vec[partner]
+
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    for g in range(G):
+        col = torch.where(alive, cost_vec[:, g], float("inf"))
+        mn = col.min()
+        alive = alive & (col <= mn + 1e-6 + 1e-6 * mn.abs())
+    is_best = idx == alive.int().argmax()
+
+    hard_sig = (((cost_vec - cv_p).abs() > goal_tols(cost_vec)) & hard_arr[None, :]).any(1)
+    hot_hard_better = _lex_lt_rows(cv_p, cost_vec, mask=hard_arr)
+    E_p = E[partner]
+    inv_t = 1.0 / temps.clamp(min=1e-30)
+    dlog = (inv_t - inv_t[partner]) * (E - E_p)
+    metro = torch.log(u) < dlog
+    soft_tie = (E - E_p).abs() <= 1e-6 + 1e-6 * E.abs()
+    hot_lex_better = _lex_lt_rows(cv_p, cost_vec)
+
+    d = torch.where(soft_tie, hot_lex_better, metro)
+    d = torch.where(hard_sig, hot_hard_better, d)
+    d = d & ~is_best
+    d = d | is_best[partner]
+    d = d & valid & low
+    swap = d | d[partner]
+    perm = torch.where(swap, partner, idx)
+    return perm, (valid & low).sum().int(), d.sum().int()
+
+
+def permute_chains(state: SearchState, perm: torch.Tensor) -> None:
+    """Reorder every chain-axis tensor of ``state`` by ``perm``, in place."""
+    C = state.n_chains
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if f.name == "agg":
+            for g in dataclasses.fields(v):
+                x = getattr(v, g.name)
+                x.copy_(x[perm])
+        elif torch.is_tensor(v) and v.dim() > 0 and v.shape[0] == C:
+            v.copy_(v[perm])
+
+
+#: (n_chains, ranks, n_temps) shapes whose rounding was already logged
+_ROUNDED_SHAPES: set = set()
+
+
+def round_up_chains(n_chains: int, ranks: int, where: str, n_temps: int = 1) -> int:
+    """The next multiple of ``ranks * n_temps`` at or above ``n_chains``,
+    so every ladder rung has as many chains; logged once per shape."""
+    mult = max(int(ranks), 1) * max(int(n_temps), 1)
+    if mult <= 1 or n_chains % mult == 0:
+        return max(n_chains, mult)
+    rounded = ((n_chains + mult - 1) // mult) * mult
+    shape = (int(n_chains), int(ranks), int(n_temps))
+    if shape not in _ROUNDED_SHAPES:
+        _ROUNDED_SHAPES.add(shape)
+        logging.getLogger(__name__).warning(
+            "%s: n_chains=%d not divisible by %d (chain ranks %d x temperature rungs %d); "
+            "rounding up to %d", where, n_chains, mult, ranks, n_temps, rounded,
+        )
+    return rounded
+
+
 def anneal(
     m: TensorClusterModel,
     cfg: GoalConfig = GoalConfig(),
     goal_names: tuple[str, ...] = DEFAULT_GOAL_ORDER,
     opts: AnnealOptions = AnnealOptions(),
-    evac: tuple[torch.Tensor, int] | None = None,
+    evac: tuple[torch.Tensor, int | torch.Tensor] | None = None,
 ) -> AnnealResult:
     """Run SA on ``opts.n_chains`` chains and return the best chain's
     placement as a new model.
@@ -1098,15 +1409,28 @@ def anneal(
     Chains never accept hard-cost-increasing moves and the temperature ends
     near zero; the winner is the lexicographic argmin of the cost vectors.
     The returned stack scores are re-evaluated from scratch. ``evac`` is an
-    optional precomputed ``hot_partition_list``."""
+    optional precomputed hot list (``hot_partition_list`` or
+    ``hot_partition_list_device``; a tensor count is read once here).
+
+    ``chunk_steps > 0`` runs the steps in chunks (module docstring); the
+    ladder rounds ``n_chains`` up to a multiple of ``n_temps``."""
     stack_before = evaluate_stack(m, cfg, goal_names)
     p_real, b_real = real_sizes(m)
     evac_idx, n_evac = evac if evac is not None else hot_partition_list(m, goal_names, cfg)
+    n_evac = int(n_evac)
     group = (
         make_topic_group(m, max_partitions_per_topic(m)) if stack_needs_topic(goal_names) else None
     )
     pp = proposal_params(opts, goal_names, cfg, p_real, b_real)
-    state = init_search_state(m, cfg, goal_names, group=group, n_chains=opts.n_chains)
+    chunked = opts.chunk_steps > 0
+    n_temps = max(int(opts.n_temps), 1) if chunked else 1
+    if opts.n_temps > 1 and not chunked:
+        logging.getLogger(__name__).warning(
+            "anneal: n_temps=%d needs chunk_steps > 0 (exchange runs at chunk boundaries); "
+            "the one-loop run stays flat", opts.n_temps,
+        )
+    C = round_up_chains(opts.n_chains, 1, "anneal", n_temps=n_temps) if n_temps > 1 else opts.n_chains
+    state = init_search_state(m, cfg, goal_names, group=group, n_chains=C)
     gen = torch.Generator(device=m.device)
     gen.manual_seed(opts.seed)
     n = max(opts.n_steps, 1)
@@ -1115,20 +1439,81 @@ def anneal(
     schedule_on = pp.allow_inter and opts.p_swap_end >= 0
     engine = step_engine(opts, pp, m.R, schedule_on)
     moves = max(opts.moves_per_step, 1)
-    C = opts.n_chains
     kw = step_kwargs(m, cfg, goal_names, pp, engine, moves, group)
-    for t in range(opts.n_steps):
-        temperature = opts.t0 * decay**t
-        share = pp.p_swap + ramp * t
-        if engine == "single":
-            _anneal_step(state, gen, temperature, evac_idx, n_evac, **kw)
-        elif engine == "batched":
-            d = draw_batched(gen, C, moves, m, pp, n_evac)
-            _anneal_step_batched(state, d, temperature, share, evac_idx, n_evac, **kw)
-        else:
-            for _ in range(moves):
-                d = draw_unified(gen, C, m, pp, n_evac)
-                _unified_move(state, d, temperature, share, evac_idx, n_evac, **kw)
+    frac = (
+        torch.from_numpy(ladder_fracs(n_temps, C)).to(m.device) if n_temps > 1 else None
+    )
+
+    def temperature(t: int):
+        if frac is None:
+            return opts.t0 * decay**t
+        return opts.t0 * torch.pow(torch.full_like(frac, decay), t * frac)
+
+    def run_steps(lo: int, hi: int) -> None:
+        for t in range(lo, hi):
+            temp = temperature(t)
+            share = pp.p_swap + ramp * t
+            if engine == "single":
+                _anneal_step(state, gen, temp, evac_idx, n_evac, **kw)
+            elif engine == "batched":
+                d = draw_batched(gen, C, moves, m, pp, n_evac)
+                _anneal_step_batched(state, d, temp, share, evac_idx, n_evac, **kw)
+            else:
+                for _ in range(moves):
+                    d = draw_unified(gen, C, m, pp, n_evac)
+                    _unified_move(state, d, temp, share, evac_idx, n_evac, **kw)
+
+    convergence = plateau_info = None
+    if not chunked:
+        run_steps(0, opts.n_steps)
+    else:
+        from ccx_torch.search import telemetry
+
+        chunk = int(opts.chunk_steps)
+        G = len(goal_names)
+        tap = telemetry.make_tap(G, m.device) if telemetry.enabled() else None
+        interval = max(int(opts.exchange_interval), 1)
+        ex_kw = {}
+        if n_temps > 1:
+            ex_kw = dict(n_temps=n_temps, hard_arr=kw["hard_arr"], weights=kw["weights"])
+
+        def run_one(carry, off):
+            # steps at or past the budget are inert: never run, never drawn
+            hi = min(off + chunk, opts.n_steps)
+            run_steps(off, hi)
+            t_last = max(min(off + chunk, n) - 1, 0)
+            ex_att = ex_acc = None
+            chunk_ord = off // chunk
+            if n_temps > 1 and (chunk_ord + 1) % interval == 0 and off < n:
+                u = draw_exchange(gen, C, m.device)
+                perm, ex_att, ex_acc = exchange_permutation(
+                    state.cost_vec, temperature(t_last), u,
+                    parity=(chunk_ord // interval) % 2, **ex_kw,
+                )
+                permute_chains(state, perm)
+            if tap is not None:
+                telemetry.record(
+                    tap, telemetry.lex_best_row(state.cost_vec),
+                    state.n_prop_kind.sum(0), state.n_acc_kind.sum(0),
+                    opts.t0 * decay**t_last, ex_att, ex_acc,
+                )
+            return carry, None
+
+        plateau = None
+        if opts.plateau_window > 0 and tap is not None:
+            plateau = PlateauExit(
+                row=lambda _: telemetry.current_row(tap, G), window=int(opts.plateau_window)
+            )
+        drive_chunks(run_one, None, total=n, chunk=chunk, plateau=plateau)
+        ladder = None
+        if n_temps > 1:
+            ladder = {
+                "nTemps": n_temps, "interval": interval, "rungSize": C // n_temps,
+                "t0": float(opts.t0), "endTemps": ladder_end_temps(opts),
+            }
+        convergence = telemetry.decode(tap, goal_names, chunk_size=chunk, budget=n, ladder=ladder)
+        if plateau is not None:
+            plateau_info = plateau.to_json(budget_chunks=(n + chunk - 1) // chunk)
 
     best = best_chain_index(state.cost_vec.cpu().numpy())
     result_model = with_placement(m, state, best)
@@ -1137,10 +1522,12 @@ def anneal(
         stack_before=stack_before,
         stack_after=evaluate_stack(result_model, cfg, goal_names),
         n_accepted=int(state.n_accepted[best]),
-        n_chains=opts.n_chains,
+        n_chains=C,
         n_steps=opts.n_steps,
         best_chain=best,
         n_prop_kind=tuple(state.n_prop_kind[best].tolist()),
         n_acc_kind=tuple(state.n_acc_kind[best].tolist()),
         engine=engine,
+        convergence=convergence,
+        plateau=plateau_info,
     )

@@ -18,6 +18,16 @@ them exactly with the swap scorer and applies the best disjoint subset.
 Both descents share one pair-candidate core (``_select_disjoint``,
 ``_compose_pairs``, ``_apply_pairs``): a single move is a pair whose b side
 is inert (rows -1).
+
+An iteration reads nothing back to the host: its selection has a fixed
+size, its writes are masked, and the stop rule (``max_iters``, ``patience``)
+is a device flag that makes every later iteration inert. With
+``chunk_iters > 0`` the iterations run in chunks through
+``annealer.drive_chunks``, which reads the stop flag once per chunk, and each
+chunk writes one convergence-tap row; ``chunk_iters=0`` runs one loop that
+reads the flag every iteration. Inert iterations change nothing, so both
+give the same result. Within a chunk the host also looks at the flag without
+waiting (``_poll_stop``) and stops queueing iterations once it sees it set.
 """
 
 from __future__ import annotations
@@ -47,6 +57,7 @@ from ccx_torch.search.annealer import (
     broker_masks,
     draw_partitions,
     draw_single,
+    drive_chunks,
     goal_tols,
     hot_partition_list,
     real_sizes,
@@ -56,6 +67,7 @@ from ccx_torch.search.state import (
     PartitionView,
     SearchState,
     _placement_updates,
+    cat_views,
     broker_pressure,
     bump_kind_counters,
     gather_views,
@@ -88,6 +100,9 @@ class GreedyOptions:
     batch_moves: int = 16
     #: every proposal is a leadership movement (the final leadership pass)
     leadership_only: bool = False
+    #: iterations per chunk (one host read and one tap row per chunk); 0 runs
+    #: one loop that reads the stop flag every iteration
+    chunk_iters: int = 50
     seed: int = 0
 
 
@@ -95,11 +110,14 @@ class GreedyOptions:
 class GreedyResult:
     model: TensorClusterModel
     stack_before: StackResult
-    stack_after: StackResult
+    #: None when the caller asked to defer the final evaluation
+    stack_after: StackResult | None
     n_moves: int
     n_iters: int
     n_prop_kind: tuple[int, ...] = (0, 0, 0)
     n_acc_kind: tuple[int, ...] = (0, 0, 0)
+    #: decoded convergence segment of a chunked run with taps on
+    convergence: dict | None = None
 
 
 def _lex_lt_batch(costs: torch.Tensor, cur: torch.Tensor) -> torch.Tensor:
@@ -120,6 +138,12 @@ def _lex_argmin(costs: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         mn = col.min()
         alive = alive & (col <= mn + (1e-6 + 1e-6 * mn.abs()))
     return alive.int().argmax()
+
+
+def _at_index(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``x[i]`` for a 0-d index tensor, as a gather: indexing with a 0-d
+    tensor reads it back to the host."""
+    return x.index_select(0, i.reshape(1))[0]
 
 
 def _select_disjoint(cost_vec, better, bmask, ta, tb, dual, n_batch, T):
@@ -144,10 +168,12 @@ def _select_disjoint(cost_vec, better, bmask, ta, tb, dual, n_batch, T):
         any_ok = ok.any()
         idx = _lex_argmin(cost_vec, ok)
         sel[k] = torch.where(any_ok, idx, N)
-        used_b |= bmask[idx] & any_ok
-        used_t[ta[idx]] |= any_ok
+        used_b |= _at_index(bmask, idx) & any_ok
+        t = ta.index_select(0, idx.reshape(1))
+        used_t.index_copy_(0, t, used_t.index_select(0, t) | any_ok)
         if dual is not None:
-            used_t[tb[idx]] |= any_ok & dual[idx]
+            t = tb.index_select(0, idx.reshape(1))
+            used_t.index_copy_(0, t, used_t.index_select(0, t) | (any_ok & _at_index(dual, idx)))
         alive &= ids != idx
     return sel
 
@@ -172,95 +198,104 @@ class Pairs:
         return self.vb is not None
 
 
-def _compose_pairs(ss: SearchState, m, c: Pairs, sel, vector_fn, guard_on, guard_cols):
+def _compose_pairs(ss: SearchState, m, c: Pairs, safe, taken, vector_fn, guard_on, guard_cols):
     """Exact composition of the selected disjoint candidates onto chain 0.
 
     Disjointness makes sum-decomposable terms additive, but the leader
     evenness and the TRD normalizer are not, so the composed vector is
     recomputed exactly; when it is not lex-better than the iteration's base
     (or trips the TRD guard) only the best single candidate (slot 0) is
-    taken. Returns (indices of the applied candidates, composed fields,
-    cost vector)."""
-    dev = sel.device
+    taken, with the scorer's own vector. Both compositions are built in one
+    scatter (two rows of scratch aggregates), so nothing is read back.
+    Returns (the chosen accumulators, its cost vector, batch_ok)."""
+    dev = safe.device
+    n = safe.numel()
     deltas = c.deltas
-
-    def compose(take):
-        k = take.numel()
-        agg = ss.agg.replace(**{f: getattr(ss.agg, f)[:1].clone() for f in BROKER_FIELDS})
-        zeros = torch.zeros(k, dtype=torch.long, device=dev)
-        one_f = torch.ones(k, device=dev)
-        one_i = torch.ones(k, dtype=torch.int32, device=dev)
-        sides = [(view_rows(c.va, take), c.olda, c.newa)]
-        if c.has_pairs:
-            sides.append((view_rows(c.vb, take), c.oldb, c.newb))
-        totals = ss.topic_totals[:1].clone()
-        for i, (v, old, new) in enumerate(sides):
-            scatter_partition(agg, m, zeros, v, *(x[take] for x in old), -one_f, -one_i)
-            scatter_partition(agg, m, zeros, v, *(x[take] for x in new), one_f, one_i)
-            d_tot = deltas.d_total2 if i else deltas.d_total
-            totals.index_put_((zeros, v.topic.long()), d_tot[take], accumulate=True)
-        part = ss.part_sums[0] + (deltas.part_sums[take] - ss.part_sums[0]).sum(0)
-        mtl = ss.mtl_sum[0] + deltas.d_mtl[take].sum()
-        trd = ss.trd_sum[0] + deltas.d_trd[take].sum()
-        return agg, part, mtl, trd, totals
-
-    full = compose(sel)
-    agg, part, mtl, trd, totals = full
-    cost_full = vector_fn(agg, part[None], mtl[None], trd[None], tt.trd_normalizer(m, totals))[0]
-    if sel.numel() <= 1:
-        return sel, full, cost_full
+    slot = torch.arange(n, device=dev)
+    first = taken & (slot == 0)
+    w = torch.cat([taken, first]).float()
+    wi = w.int()
+    rows = torch.cat([torch.zeros(n, dtype=torch.long, device=dev),
+                      torch.ones(n, dtype=torch.long, device=dev)])
+    agg = ss.agg.replace(**{f: getattr(ss.agg, f)[:1].repeat_interleave(2, 0) for f in BROKER_FIELDS})
+    totals = ss.topic_totals[:1].repeat_interleave(2, 0)
+    sides = [(c.va, c.olda, c.newa, deltas.d_total)]
+    if c.has_pairs:
+        sides.append((c.vb, c.oldb, c.newb, deltas.d_total2))
+    for view, old, new, d_tot in sides:
+        v = view_rows(view, safe)
+        v2 = cat_views(v, v)
+        scatter_partition(agg, m, rows, v2, *(x[safe].repeat(2, *([1] * (x.dim() - 1))) for x in old), -w, -wi)
+        scatter_partition(agg, m, rows, v2, *(x[safe].repeat(2, *([1] * (x.dim() - 1))) for x in new), w, wi)
+        totals.index_put_((rows, v2.topic.long()), w * d_tot[safe].repeat(2), accumulate=True)
+    wf = w.view(2, n)
+    part = ss.part_sums[:1] + (wf[:, :, None] * (deltas.part_sums[safe] - ss.part_sums[0])[None]).sum(1)
+    mtl = ss.mtl_sum[0] + (wf * deltas.d_mtl[safe][None]).sum(1)
+    trd = ss.trd_sum[0] + (wf * deltas.d_trd[safe][None]).sum(1)
+    full_agg = agg.replace(**{f: getattr(agg, f)[:1] for f in BROKER_FIELDS})
+    cost_full = vector_fn(full_agg, part[:1], mtl[:1], trd[:1], tt.trd_normalizer(m, totals[:1]))[0]
     cur = ss.cost_vec[0]
     d_full = cost_full - cur
-    full_guard_up = guard_on and bool(
-        ((d_full.abs() > goal_tols(cur)) & guard_cols & (d_full > 0)).any()
+    batch_ok = (taken.sum() <= 1) | _lex_lt_batch(cost_full[None], cur)[0]
+    if guard_on:
+        batch_ok &= (taken.sum() <= 1) | ~((d_full.abs() > goal_tols(cur)) & guard_cols & (d_full > 0)).any()
+    pick = torch.where(batch_ok, 0, 1)
+    cost_first = torch.where(taken[0], _at_index(deltas.cost_vec, safe[0]), cur)
+    composed = (
+        {f: _at_index(getattr(agg, f), pick) for f in BROKER_FIELDS},
+        _at_index(part, pick), _at_index(mtl, pick), _at_index(trd, pick), _at_index(totals, pick),
     )
-    if bool(_lex_lt_batch(cost_full[None], cur)[0]) and not full_guard_up:
-        return sel, full, cost_full
-    first = sel[:1]
-    return first, compose(first), deltas.cost_vec[sel[0]]
+    return composed, torch.where(batch_ok, cost_full, cost_first), batch_ok
 
 
-def _apply_pairs(ss: SearchState, group, c: Pairs, take, composed, cost_vec, dual) -> None:
-    """Write the composed accumulators and the taken placements into chain
-    0; b sides are written where ``dual`` (None: no b sides)."""
+def _apply_pairs(ss: SearchState, group, c: Pairs, safe, write_a, keep, composed, cost_vec, dual) -> None:
+    """Write the composed accumulators (where ``keep``) and the written
+    slots' placements (``write_a``; b sides where ``dual``, None: no b sides)
+    into chain 0."""
     agg, part, mtl, trd, totals = composed
+
+    def put(dst: torch.Tensor, new: torch.Tensor) -> None:
+        dst.copy_(torch.where(keep, new, dst))
+
     for f in BROKER_FIELDS:
-        getattr(ss.agg, f)[:1] = getattr(agg, f)
-    ss.part_sums[0] = part
-    ss.mtl_sum[0] = mtl
-    ss.trd_sum[0] = trd
-    ss.topic_totals[:1] = totals
-    ss.cost_vec[0] = cost_vec
-    ss.n_accepted[0] += take.numel()
-    sides = [(c.pa, view_rows(c.va, take), c.newa, torch.ones_like(take, dtype=torch.bool))]
+        put(getattr(ss.agg, f)[0], agg[f])
+    put(ss.part_sums[0], part)
+    put(ss.mtl_sum[0], mtl)
+    put(ss.trd_sum[0], trd)
+    put(ss.topic_totals[0], totals)
+    put(ss.cost_vec[0], cost_vec)
+    ss.n_accepted[0] += write_a.sum().int()
+    va = view_rows(c.va, safe)
+    sides = [(c.pa[safe], va, tuple(x[safe] for x in c.newa), write_a)]
     if dual is not None:
-        sides.append((c.pb, view_rows(c.vb, take), c.newb, dual[take]))
+        sides.append((c.pb[safe], view_rows(c.vb, safe), tuple(x[safe] for x in c.newb),
+                      write_a & dual[safe]))
     write = torch.cat([w for *_, w in sides])
     _placement_updates(
         ss, group, torch.zeros_like(write, dtype=torch.long),
-        torch.cat([p[take] for p, *_ in sides]), torch.cat([v.topic for _, v, _, _ in sides]),
+        torch.cat([p for p, *_ in sides]), torch.cat([v.topic for _, v, _, _ in sides]),
         write=write, mirror=write & torch.cat([v.pvalid for _, v, _, _ in sides]),
-        rows=torch.cat([new[0][take] for _, _, new, _ in sides]),
-        leads=torch.cat([new[1][take] for _, _, new, _ in sides]),
-        disks=torch.cat([new[2][take] for _, _, new, _ in sides]),
+        rows=torch.cat([new[0] for _, _, new, _ in sides]),
+        leads=torch.cat([new[1] for _, _, new, _ in sides]),
+        disks=torch.cat([new[2] for _, _, new, _ in sides]),
     )
 
 
 def _descend(ss, m, group, c: Pairs, feas, hard_arr, guard_on, guard_cols, vector_fn,
-             n_batch, dual):
+             n_batch, dual, live):
     """One descent iteration's selection and application: the improving,
     hard-safe (optionally TRD-guarded) candidates, their best disjoint
-    subset composed exactly and applied. Returns the indices applied (None
-    when no candidate improves)."""
+    subset composed exactly and applied. Nothing is applied where ``live``
+    (a device bool) is False. Returns (the selected candidates int64[n_batch],
+    which of them were written bool[n_batch])."""
     cur = ss.cost_vec[0]
     d_all = c.deltas.cost_vec - cur[None, :]
     sig_all = d_all.abs() > goal_tols(cur)[None, :]
     hard_up = (sig_all & hard_arr & (d_all > 0)).any(1)
-    better = feas & ~hard_up & _lex_lt_batch(c.deltas.cost_vec, cur)
+    better = feas & ~hard_up & _lex_lt_batch(c.deltas.cost_vec, cur) & live
     if guard_on:
         better &= ~(sig_all & guard_cols & (d_all > 0)).any(1)
-    if not bool(better.any()):
-        return None
+    any_better = better.any()
     rows = [c.olda[0], c.newa[0]]
     if c.has_pairs:
         rows += [c.oldb[0], c.newb[0]]
@@ -270,10 +305,84 @@ def _descend(ss, m, group, c: Pairs, feas, hard_arr, guard_on, guard_cols, vecto
     ta = c.va.topic.long().clamp(0, T - 1)
     tb = c.vb.topic.long().clamp(0, T - 1) if c.has_pairs else None
     sel = _select_disjoint(c.deltas.cost_vec, better, bmask, ta, tb, dual, n_batch, T)
-    sel = sel[sel < N]
-    take, composed, cost_vec = _compose_pairs(ss, m, c, sel, vector_fn, guard_on, guard_cols)
-    _apply_pairs(ss, group, c, take, composed, cost_vec, dual)
-    return take
+    taken = sel < N
+    safe = sel.clamp(max=N - 1)
+    composed, cost_vec, batch_ok = _compose_pairs(
+        ss, m, c, safe, taken, vector_fn, guard_on, guard_cols
+    )
+    slot0 = torch.arange(sel.numel(), device=sel.device) == 0
+    write_a = taken & (batch_ok | slot0) & any_better
+    _apply_pairs(ss, group, c, safe, write_a, any_better, composed, cost_vec, dual)
+    return safe, write_a
+
+
+def _poll_stop(poll: dict, live: torch.Tensor) -> bool:
+    """Whether the host can see, without waiting, that the descent has
+    stopped. On the CPU the flag is read directly. On a card the flag is
+    copied to pinned memory behind the queued work and read once that copy
+    has landed, so the answer may lag a few iterations (the iterations in
+    between are inert)."""
+    if live.device.type != "cuda":
+        return not bool(live)
+    if "buf" not in poll:
+        poll["buf"] = torch.zeros((), dtype=torch.bool, pin_memory=True)
+        poll["event"] = torch.cuda.Event()
+        poll["pending"] = False
+    if poll["pending"] and poll["event"].query():
+        poll["pending"] = False
+        if not bool(poll["buf"]):
+            return True
+    if not poll["pending"]:
+        poll["buf"].copy_(live, non_blocking=True)
+        poll["event"].record()
+        poll["pending"] = True
+    return False
+
+
+def _drive_descent(iteration, ss: SearchState, goal_names, opts, dev):
+    """Run ``iteration(live) -> applied`` (int tensor, 0 where not live) to
+    the stop rule: ``opts.max_iters`` iterations, or ``opts.patience``
+    consecutive ones that applied nothing. Returns (iterations, moves,
+    convergence segment or None)."""
+    from ccx_torch.search import telemetry
+
+    i32 = dict(dtype=torch.int32, device=dev)
+    it = torch.zeros((), **i32)
+    stale = torch.zeros((), **i32)
+    moves = torch.zeros((), **i32)
+
+    def live() -> torch.Tensor:
+        return (it < opts.max_iters) & (stale < opts.patience)
+
+    def one() -> None:
+        lv = live()
+        n = iteration(lv)
+        it.add_(lv.int())
+        stale.copy_(torch.where(lv, torch.where(n > 0, 0, stale + 1), stale))
+        moves.add_(n)
+
+    convergence = None
+    if opts.chunk_iters > 0:
+        tap = telemetry.make_tap(len(goal_names), dev) if telemetry.enabled() else None
+        poll: dict = {}
+
+        def run_one(carry, off):
+            for _ in range(opts.chunk_iters):
+                if _poll_stop(poll, live()):
+                    break
+                one()
+            if tap is not None:
+                telemetry.record(tap, ss.cost_vec[0], ss.n_prop_kind[0], ss.n_acc_kind[0], 0.0)
+            return carry, ~live()
+
+        drive_chunks(run_one, None, total=opts.max_iters, chunk=opts.chunk_iters)
+        convergence = telemetry.decode(
+            tap, goal_names, chunk_size=opts.chunk_iters, budget=opts.max_iters
+        )
+    else:
+        while bool(live()):
+            one()
+    return int(it), int(moves), convergence
 
 
 def greedy_optimize(
@@ -324,34 +433,30 @@ def greedy_optimize(
     gen = torch.Generator(device=dev)
     gen.manual_seed(opts.seed + 1)
 
-    it = stale = moves = 0
-    while it < opts.max_iters and stale < opts.patience:
+    def iteration(live: torch.Tensor) -> torch.Tensor:
         ps, use_evac = _draw_partition(draw_partitions(gen, N, pp, n_evac, dev), pp, evac, n_evac)
         view = gather_views(ss, m, chain, ps)
         old, new, feas = _single_plan(draw_single(gen, N, m, pp), ss, chain, m, pp, view, use_evac)
         deltas = scorer(ss, chain, view, old, new)
-        take = _descend(
+        _, write_a = _descend(
             ss, m, group, Pairs(pa=ps, va=view, olda=old, newa=new, deltas=deltas), feas,
-            hard_arr, trd_guard, guard_cols, vector_fn, n_batch, dual=None,
+            hard_arr, trd_guard, guard_cols, vector_fn, n_batch, dual=None, live=live,
         )
-        n_acc = 0 if take is None else take.numel()
-        moves += n_acc
-        stale = stale + 1 if take is None else 0
-        bump_kind_counters(
-            ss, chain[:1], KIND_SINGLE, N,
-            torch.full((1,), n_acc, dtype=torch.int32, device=dev),
-        )
-        it += 1
+        n_acc = write_a.sum().int()
+        bump_kind_counters(ss, chain[:1], KIND_SINGLE, (live.int() * N).reshape(1), n_acc.reshape(1))
+        return n_acc
 
+    n_iters, moves, convergence = _drive_descent(iteration, ss, goal_names, opts, dev)
     result_model = with_placement(m, ss)
     return GreedyResult(
         model=result_model,
         stack_before=stack_before,
         stack_after=evaluate_stack(result_model, cfg, goal_names),
         n_moves=moves,
-        n_iters=it,
+        n_iters=n_iters,
         n_prop_kind=tuple(ss.n_prop_kind[0].tolist()),
         n_acc_kind=tuple(ss.n_acc_kind[0].tolist()),
+        convergence=convergence,
     )
 
 
@@ -373,9 +478,7 @@ class SwapPolishOptions:
     batch_moves: int = 16
     #: veto candidates that significantly worsen TopicReplicaDistribution
     trd_guard: bool = True
-    #: iterations per chunk of the JAX package's chunked descent; accepted
-    #: for equal options, while one loop runs here (chunked and monolithic
-    #: descents give the same result)
+    #: iterations per chunk (``GreedyOptions.chunk_iters``); 0: one loop
     chunk_iters: int = 50
     seed: int = 0
 
@@ -432,6 +535,9 @@ class SwapPolishIteration:
         self.recv_ok = m.broker_ok & ~m.broker_excl_replicas
         self.lead_allowed = m.broker_ok & ~m.broker_excl_leadership
         self.is_swap = torch.arange(self.N, device=dev) < self.k_sw
+        #: proposals per iteration by move kind (coupled leadership
+        #: transfers are single moves, the pairs replica swaps)
+        self.proposed = torch.tensor([self.k_ld, self.k_sw, 0], dtype=torch.int32, device=dev)
         # the usage a leadership transfer moves, and its damping: the count
         # fix wants low-usage-delta leaders, which the usage tiers above
         # LeaderReplica do not veto
@@ -531,26 +637,23 @@ class SwapPolishIteration:
                       pb=pb, vb=vb, oldb=oldb, newb=newb)
         return pairs, torch.where(sw, ok_sw, ok_ld)
 
-    def __call__(self, ss: SearchState, d: SwapPolishDraws, guard_on: bool) -> int:
-        """Run one iteration in place; returns the candidates applied (0:
-        none improved)."""
+    def __call__(self, ss: SearchState, d: SwapPolishDraws, guard_on: bool,
+                 live: torch.Tensor | None = None) -> torch.Tensor:
+        """Run one iteration in place, nothing applied where ``live`` (a
+        device bool, default True) is False; returns the candidates applied
+        (an int tensor; 0: none improved)."""
+        if live is None:
+            live = torch.ones((), dtype=torch.bool, device=self.m.device)
         pairs, feas = self.plan(ss, d, *self.candidates(ss, d))
-        take = _descend(
+        safe, write_a = _descend(
             ss, self.m, self.group, pairs, feas, self.hard_arr, guard_on, self.guard_cols,
-            self.vector_fn, self.n_batch, dual=self.is_swap,
+            self.vector_fn, self.n_batch, dual=self.is_swap, live=live,
         )
-        n_sw = 0 if take is None else int(self.is_swap[take].sum())
-        n_ld = 0 if take is None else take.numel() - n_sw
-        dev = self.m.device
-        # coupled leadership transfers are single moves (kind 0), the pairs
-        # replica swaps (kind 1)
-        chain = torch.zeros(3, dtype=torch.long, device=dev)
-        ss.n_prop_kind.index_put_((chain, torch.arange(3, device=dev)),
-                                  torch.tensor([self.k_ld, self.k_sw, 0], dtype=torch.int32, device=dev),
-                                  accumulate=True)
-        ss.n_acc_kind.index_put_((chain, torch.arange(3, device=dev)),
-                                 torch.tensor([n_ld, n_sw, 0], dtype=torch.int32, device=dev),
-                                 accumulate=True)
+        sw = self.is_swap[safe]
+        n_sw = (write_a & sw).sum().int()
+        n_ld = (write_a & ~sw).sum().int()
+        ss.n_prop_kind[0] += self.proposed * live.int()
+        ss.n_acc_kind[0] += torch.stack([n_ld, n_sw, torch.zeros_like(n_sw)])
         return n_sw + n_ld
 
 
@@ -559,35 +662,47 @@ def swap_polish(
     cfg: GoalConfig = GoalConfig(),
     goal_names: tuple[str, ...] = DEFAULT_GOAL_ORDER,
     opts: SwapPolishOptions = SwapPolishOptions(),
+    *,
+    init: tuple[SearchState, StackResult] | None = None,
+    defer_stack_after: bool = False,
 ) -> GreedyResult:
     """Run the usage-coupled swap-polish descent to a local optimum.
 
     Only lex-improving, hard-safe candidates are applied, so the result is
     never lexicographically worse than the input, and every broker keeps its
     replica count (replica swaps exchange brokers, leadership transfers move
-    no replica). Intra-broker-only stacks have no swap space."""
+    no replica). Intra-broker-only stacks have no swap space.
+
+    ``init`` is an optional ``(state, stack_before)`` of ``m`` from a caller
+    that already evaluated it (the warm pipeline's fused init, which shares
+    one aggregates launch); the state is run in place.
+    ``defer_stack_after`` skips the final evaluation (``stack_after`` is
+    None) for a caller that evaluates after a later stage anyway."""
     if not allows_inter_broker(goal_names):
         raise ValueError(
             "swap_polish proposes inter-broker swaps; intra-broker-only stacks must not run it"
         )
-    stack_before = evaluate_stack(m, cfg, goal_names)
     step = SwapPolishIteration(m, cfg, goal_names, opts)
-    ss = init_search_state(m, cfg, goal_names, group=step.group)
+    if init is not None:
+        ss, stack_before = init
+    else:
+        stack_before = evaluate_stack(m, cfg, goal_names)
+        ss = init_search_state(m, cfg, goal_names, group=step.group)
     gen = torch.Generator(device=m.device)
     gen.manual_seed(opts.seed + 1)
-    it = stale = moves = 0
-    while it < opts.max_iters and stale < opts.patience:
-        n = step(ss, draw_swap_polish(gen, m, step.N), opts.trd_guard)
-        moves += n
-        stale = 0 if n else stale + 1
-        it += 1
+
+    def iteration(live: torch.Tensor) -> torch.Tensor:
+        return step(ss, draw_swap_polish(gen, m, step.N), opts.trd_guard, live)
+
+    n_iters, moves, convergence = _drive_descent(iteration, ss, goal_names, opts, m.device)
     result_model = with_placement(m, ss)
     return GreedyResult(
         model=result_model,
         stack_before=stack_before,
-        stack_after=evaluate_stack(result_model, cfg, goal_names),
+        stack_after=None if defer_stack_after else evaluate_stack(result_model, cfg, goal_names),
         n_moves=moves,
-        n_iters=it,
+        n_iters=n_iters,
         n_prop_kind=tuple(ss.n_prop_kind[0].tolist()),
         n_acc_kind=tuple(ss.n_acc_kind[0].tolist()),
+        convergence=convergence,
     )

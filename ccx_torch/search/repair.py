@@ -601,15 +601,20 @@ def topic_rebalance(
     return out, total_moved
 
 
-def finalize_preferred_leaders(model: TensorClusterModel, cfg: GoalConfig, goal_names, stack_after):
+def finalize_preferred_leaders(model: TensorClusterModel, cfg: GoalConfig, goal_names, stack_after,
+                               reevaluate: bool = True):
     """The pipeline's last stage: canonicalize preferred leaders and
     re-evaluate the stack when anything changed. Returns (model,
     stack_after, n_canonicalized); a no-op for stacks without
-    PreferredLeaderElectionGoal."""
+    PreferredLeaderElectionGoal. ``reevaluate=False`` (the warm pipeline,
+    which evaluates the final placement once anyway) returns
+    ``stack_after=None`` instead of re-evaluating when anything changed."""
     if "PreferredLeaderElectionGoal" not in goal_names:
         return model, stack_after, 0
     model, n = canonicalize_preferred_leaders(model)
     if n:
+        if not reevaluate:
+            return model, None, n
         from ccx_torch.goals.stack import evaluate_stack
 
         stack_after = evaluate_stack(model, cfg, goal_names)

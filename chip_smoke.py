@@ -32,12 +32,40 @@ Phases, one JSON line each:
    round of up to 1024 sweeps with leader moves and a guarded
    700-iteration re-polish; swap polish 150 + 300 iterations with 128
    candidates, guarded; leader pass 150), with the same line and checks;
-6. result check — a small cluster's stack on the card held against the same
+6. warm path — the steady-state loop at B5, full width: ``main-path``'s
+   verified result banked as the session's warm base (``remember``), then
+   2 + 20 metrics windows (the bench's drift rule, 1% of the partitions'
+   loads by +-50%, seed 123, cumulative; the snapshot keeps the applied
+   placement), each ``optimize(..., warm_start=STORE.get(session))`` at the
+   target rung with ``rungs.steady_options()`` and the movement plan, and
+   re-banked from ``warm_pressure``. Per window: wall and phase seconds,
+   touched brokers, diff rows, any revert, the plan's waves and backend,
+   ``verified``, hard violations, aggregates launches; each window's diff is
+   also planned with the device loop forced and held array-exact against
+   the numpy oracle, as is the shipped plan. Over the 20 measured windows
+   (the first 2 warm up): p50 and p99 of the wall and the card's memory
+   peak. Fails on a window that is not warm-started, unverified, has a
+   hard violation or ships a stack significantly lex-worse than its base;
+7. structural window — one more window on the drifted B5 with 2 live
+   brokers marked dead: it must repair, run the plateau-terminated warm SA
+   over the targeted hot list and the swap polish, verify with no hard
+   violation and leave no replica on a dead broker; the plateau report,
+   chunks run against the budget, offenders and wall;
+8. ladder — SA on the repaired B5 at the target rung's budget (16 chains x
+   250 steps x 8 moves) in chunks of 25, with ``n_temps=4`` and with
+   ``n_temps=1``: wall, exchange attempts and accepts from the taps, and the
+   result's stack;
+9. result check — a small cluster's stack on the card held against the same
    stack on the CPU, and three batched SA steps on a 64-broker cluster (3
    chains, 4 moves), then three swap-polish iterations, fed the same draws
    on the card and on the CPU: integer state, placement and grouped mirror
-   equal, cost vectors within rtol 1e-5;
-7. after both paths, which so run as they would alone: the same kernel
+   equal, cost vectors within rtol 1e-5; one exchange sweep on the same cost
+   vectors, temperatures and uniforms gives the same permutation; a warm
+   window on the 64-broker cluster gives the same merged placement, touched
+   mask and hot list (pressure stack within rtol 1e-5 / atol 1e-3) on both,
+   and the CPU window's diff planned by the device loop on both gives the
+   same waves;
+10. after the paths, which so run as they would alone: the same kernel
    check on B6 (10k brokers / 1M partitions, whose shared rows need broker
    tiles), then the kernel times at B5, 4000 brokers and B6 (last, since
    torch.profiler's tracing slows every later launch of the process):
@@ -47,17 +75,21 @@ Phases, one JSON line each:
    kernel's own choice and for each forced way; at B5 also the plain
    version's time. The ``kernels`` line gives B5's: its ``ms`` is the call
    time ``call_ms``, beside ``device_ms`` and ``host_us``;
-8. profile — the device busy share and kernel count, under torch.profiler,
+11. profile — the device busy share and kernel count, under torch.profiler,
    of windows on the repaired B5 model: 10 single-move SA steps
    (``p_swap=0``) and 10 polish iterations, as measured before the swap
    engine, then 10 batched SA steps at ``p_swap=0.15`` and 10 swap-polish
-   iterations;
-9. the card's ``nvidia-smi`` line, then the ``kernels`` line, then the
+   iterations, and one more warm window on the warm path's last snapshot;
+   before them, how many times each of these calls (10 steps or
+   iterations; one warm window) makes the host wait for the card;
+12. the card's ``nvidia-smi`` line, then the ``kernels`` line, then the
    contract line ``{"ok": true, "device": {...}}`` last.
 
 Any failed check, an unverified result, remaining hard violations, a path
 that never proposed both kinds of swap (target) or launched a kernel of
-the path zero times exits non-zero. Needs one CUDA
+the path zero times exits non-zero. Each path (main, lean, warm,
+structural, ladder) sets the launch count to 0 just before it runs and
+reads it just after. Needs one CUDA
 device; run from the repository root: ``python3 chip_smoke.py``.
 """
 
@@ -95,6 +127,13 @@ WIDE_SPEC = dict(n_brokers=4000, n_racks=40, n_topics=64, n_partitions=8000,
                  n_dead_brokers=3, seed=7)
 WIDER_SPEC = dict(n_brokers=8000, n_racks=40, n_topics=64, n_partitions=16000,
                   n_dead_brokers=3, seed=8)
+#: the warm path: windows to warm up, windows measured, the drift rule's
+#: share of partitions and seed (the bench's ``run_steady``)
+WARM_UP, WARM_WINDOWS, DRIFT, DRIFT_SEED = 2, 20, 0.01, 123
+#: live brokers marked dead in the structural window
+DEAD_IN_WINDOW = 2
+#: the ladder phase: temperature rungs and steps per chunk
+LADDER_TEMPS, LADDER_CHUNK = 4, 25
 #: fixtures of the kernel-time phase: B5, a sparse wide cluster, and B6,
 #: whose 16384 brokers need broker tiles for rows in shared memory
 TIME_FIXTURES = ("B5", "4000-brokers", "B6")
@@ -258,6 +297,24 @@ def device_busy(fn) -> dict:
             "busy_share": busy_us / 1e6 / wall, "kernels": len(spans)}
 
 
+def host_syncs(fn) -> int:
+    """How many times ``fn`` makes the host wait for the card (PyTorch's
+    synchronizing-operation warnings, ``torch.cuda.set_sync_debug_mode``)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
 def draws_to(d, device):
     """A draws dataclass (nested ones included) with every tensor on
     ``device``."""
@@ -331,8 +388,8 @@ def card_against_cpu(dev) -> dict:
     applied = 0
     for _ in range(STEP_COUNT):
         d = draw_swap_polish(gen, m_c, steps[0].N)
-        on_cpu = steps[0](states[0], d, guard_on=True)
-        on_card = steps[1](states[1], draws_to(d, dev), guard_on=True)
+        on_cpu = int(steps[0](states[0], d, guard_on=True))
+        on_card = int(steps[1](states[1], draws_to(d, dev), guard_on=True))
         if on_cpu != on_card:
             fail(f"swap polish: {on_cpu} candidates applied on the CPU, {on_card} on the card")
         applied += on_cpu
@@ -343,6 +400,306 @@ def card_against_cpu(dev) -> dict:
     if not torch.allclose(states[0].cost_vec, states[1].cost_vec.cpu(), rtol=RTOL, atol=1e-6):
         fail("swap polish: cost vectors differ between the card and the CPU")
     return {"batched_step": sa, "swap_polish": {"iters": STEP_COUNT, "applied": applied}}
+
+
+def plan_options(opts, backend: str):
+    """The plan options ``optimize`` plans with, the backend forced."""
+    from ccx_torch.search.movement import PlanOptions
+
+    return PlanOptions(broker_cap=opts.plan_broker_cap, wave_bytes=opts.plan_wave_bytes_mb,
+                       max_waves=opts.plan_max_waves,
+                       throttle_mb_per_sec=opts.plan_throttle_mb_per_sec, backend=backend)
+
+
+def same_plan(a, b) -> bool:
+    import numpy as np
+
+    return (np.array_equal(a.wave, b.wave) and np.array_equal(a.wave_bytes, b.wave_bytes)
+            and np.array_equal(a.wave_inflow_peak, b.wave_inflow_peak)
+            and np.array_equal(a.wave_outflow_peak, b.wave_outflow_peak)
+            and a.n_waves == b.n_waves and a.overflow_rows == b.overflow_rows)
+
+
+def stack_line(stack) -> dict:
+    return {"hard": float(stack.hard_violations),
+            "violations": {n: v for n, (v, _) in stack.by_name().items()}}
+
+
+def warm_path(b5, base, cfg, goal_names, opts, agg_op) -> tuple[dict, object, object]:
+    """The steady-state loop (module docstring, phase 6). Returns (its line,
+    the last window's snapshot, the session name)."""
+    import numpy as np
+    import torch
+    from ccx_torch import rungs
+    from ccx_torch.common.resources import Resource
+    from ccx_torch.optimizer import optimize
+    from ccx_torch.search import incremental as inc
+    from ccx_torch.search.movement import plan_movement
+
+    wopts = dataclasses.replace(opts, incremental=rungs.steady_options(), plan_enabled=True)
+    session = "chip-smoke-B5"
+    inc.STORE.clear()
+    inc.remember(session, 1, base.model, cfg)
+    applied = b5.replace(assignment=base.model.assignment, leader_slot=base.model.leader_slot,
+                         replica_disk=base.model.replica_disk)
+    loads = {f: getattr(applied, f).cpu().numpy() for f in ("leader_load", "follower_load")}
+    rng = np.random.default_rng(DRIFT_SEED)
+    p_real = int(b5.partition_valid.sum())
+    n_drift = max(int(p_real * DRIFT), 1)
+    windows = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    agg_op.LAUNCHES = 0
+    for i in range(WARM_UP + WARM_WINDOWS):
+        loads = rungs.drift_metrics(loads, rng, p_real, n_drift)
+        snap = applied.replace(**{f: torch.from_numpy(a).to(b5.device) for f, a in loads.items()})
+        before = agg_op.LAUNCHES
+        t = time.monotonic()
+        res = optimize(snap, cfg, goal_names, wopts, warm_start=inc.STORE.get(session))
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t
+        launches = agg_op.LAUNCHES - before
+        inc.remember(session, i + 2, res.model, cfg, pressure=res.warm_pressure)
+        info = res.incremental or {}
+        bytes_pp = snap.leader_load[Resource.DISK]
+        t = time.monotonic()
+        oracle = plan_movement(res.diff, bytes_pp, snap.B, plan_options(wopts, "numpy"))
+        numpy_s = time.monotonic() - t
+        t = time.monotonic()
+        forced = plan_movement(res.diff, bytes_pp, snap.B, plan_options(wopts, "device"))
+        device_s = time.monotonic() - t
+        hard = float(res.stack_after.hard_violations)
+        worse = inc._significantly_lex_worse(res.stack_after, res.stack_before)
+        windows.append({
+            "window": i + 1, "measured": i >= WARM_UP, "wall_seconds": wall,
+            "optimize_wall_seconds": res.wall_seconds, "phase_seconds": res.phase_seconds,
+            "warm_start": bool(info.get("warmStart")), "touched_brokers": info.get("touchedBrokers"),
+            "diff_rows": res.diff.n, "reverted": info.get("reverted"),
+            "swap_polish_moves": res.n_polish_moves,
+            "plan": {"waves": res.plan.n_waves, "backend": res.plan.backend,
+                     "equals_oracle": same_plan(res.plan, oracle),
+                     "forced_device_equals_oracle": same_plan(forced, oracle),
+                     "forced_device_backend": forced.backend,
+                     "numpy_seconds": numpy_s, "forced_device_seconds": device_s},
+            "verified": res.verification.ok, "hard_violations": hard,
+            "lex_worse_than_base": worse, "launches": launches,
+        })
+        if not info.get("warmStart"):
+            fail(f"warm-path window {i + 1} was not warm-started: {info}")
+        if not res.verification.ok:
+            fail(f"warm-path window {i + 1}: verification failed: {res.verification.failures}")
+        if hard > 0:
+            fail(f"warm-path window {i + 1}: {hard} hard violations")
+        if worse:
+            fail(f"warm-path window {i + 1} ships a stack lex-worse than its base")
+        if forced.backend != "device" or not same_plan(forced, oracle) or not same_plan(res.plan, oracle):
+            fail(f"warm-path window {i + 1}: the plan differs from the numpy oracle")
+        del res
+    total = agg_op.LAUNCHES
+    measured = [w for w in windows if w["measured"]]
+    walls = sorted(w["wall_seconds"] for w in measured)
+    p99 = walls[min(int(round(0.99 * (len(walls) - 1))), len(walls) - 1)]
+    line = {
+        "phase": "warm-path", "config": "B5", "rung": "target", "drift": DRIFT,
+        "drift_partitions": n_drift, "seed": DRIFT_SEED, "warm_up": WARM_UP,
+        "windows_measured": len(measured),
+        "steady_options": dataclasses.asdict(rungs.steady_options()),
+        "wall_p50_seconds": float(np.median(walls)), "wall_p99_seconds": p99,
+        "phase_p50_seconds": {
+            k: float(np.median([w["phase_seconds"].get(k, 0.0) for w in measured]))
+            for k in measured[0]["phase_seconds"]
+        },
+        "launches": {"broker_aggregates": total},
+        "launches_per_window": total / len(windows),
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+        "store": inc.STORE.stats(),
+        "windows": windows,
+    }
+    if total == 0:
+        fail("warm-path never launched the broker_aggregates kernel")
+    return line, snap, session
+
+
+def structural_window(snap, cfg, goal_names, opts, session, agg_op) -> dict:
+    """Phase 7: one window with live brokers marked dead."""
+    import torch
+    from ccx_torch import rungs
+    from ccx_torch.optimizer import optimize
+    from ccx_torch.search import incremental as inc
+
+    wopts = dataclasses.replace(opts, incremental=rungs.steady_options(), plan_enabled=True)
+    live = torch.nonzero(snap.broker_ok)[:, 0]
+    dead = live[:DEAD_IN_WINDOW]
+    alive = snap.broker_alive.clone()
+    alive[dead] = False
+    m = snap.replace(broker_alive=alive)
+    agg_op.LAUNCHES = 0
+    t = time.monotonic()
+    res = optimize(m, cfg, goal_names, wopts, warm_start=inc.STORE.get(session))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t
+    launches = agg_op.LAUNCHES
+    info = res.incremental or {}
+    on_dead = int(((res.model.assignment[:, :, None] == dead[None, None, :]).any(2)
+                   & res.model.partition_valid[:, None]).sum())
+    hard = float(res.stack_after.hard_violations)
+    line = {
+        "phase": "structural-window", "config": "B5", "dead_brokers": dead.tolist(),
+        "wall_seconds": wall, "phase_seconds": res.phase_seconds,
+        "warm_start": bool(info.get("warmStart")),
+        "structural_offenders": info.get("structuralOffenders"),
+        "drift_partitions": info.get("driftPartitions"), "plateau": info.get("plateau"),
+        "reverted": info.get("reverted"), "diff_rows": res.diff.n,
+        "verified": res.verification.ok, "hard_violations": hard,
+        "replicas_on_dead_brokers": on_dead, "launches": {"broker_aggregates": launches},
+        "sa_accepted": res.n_sa_accepted, "polish_moves": res.n_polish_moves,
+    }
+    if not info.get("warmStart") or not info.get("structuralOffenders"):
+        fail(f"structural-window did not take the structural path: {info}")
+    if not {"repair", "anneal", "swap-polish"} <= set(res.phase_seconds):
+        fail(f"structural-window phases: {sorted(res.phase_seconds)}")
+    if info.get("plateau") is None:
+        fail("structural-window: no plateau report")
+    if not res.verification.ok:
+        fail(f"structural-window: verification failed: {res.verification.failures}")
+    if hard > 0 or on_dead:
+        fail(f"structural-window: {hard} hard violations, {on_dead} replicas on dead brokers")
+    if launches == 0:
+        fail("structural-window never launched the broker_aggregates kernel")
+    return line
+
+
+def ladder_run(repaired, cfg, goal_names, opts, agg_op) -> dict:
+    """Phase 8: the target rung's SA budget on the repaired B5, chunked,
+    with and without the replica-exchange ladder."""
+    import torch
+    from ccx_torch.search.annealer import anneal
+
+    runs = {}
+    agg_op.LAUNCHES = 0
+    for n_temps in (LADDER_TEMPS, 1):
+        aopts = dataclasses.replace(opts.anneal, chunk_steps=LADDER_CHUNK, n_temps=n_temps)
+        t = time.monotonic()
+        sa = anneal(repaired, cfg, goal_names, aopts)
+        torch.cuda.synchronize()
+        ex = (sa.convergence or {}).get("exchange") or {}
+        runs[f"n_temps={n_temps}"] = {
+            "wall_seconds": time.monotonic() - t, "chains": sa.n_chains,
+            "chunks": (sa.convergence or {}).get("chunks"),
+            "exchange_attempted": sum(ex.get("attempted", [])),
+            "exchange_accepted": sum(ex.get("accepted", [])),
+            "accepted": sa.n_accepted, "after": stack_line(sa.stack_after),
+            "costs": sa.stack_after.costs.tolist(),
+        }
+    launches = agg_op.LAUNCHES
+    if runs[f"n_temps={LADDER_TEMPS}"]["exchange_attempted"] == 0:
+        fail("ladder: no exchange was attempted")
+    if launches == 0:
+        fail("ladder never launched the broker_aggregates kernel")
+    return {"phase": "ladder", "config": "B5 after hard_repair", "steps": opts.anneal.n_steps,
+            "chains": opts.anneal.n_chains, "moves": opts.anneal.moves_per_step,
+            "chunk_steps": LADDER_CHUNK, "launches": {"broker_aggregates": launches}, **runs}
+
+
+def exchange_on_card(dev) -> dict:
+    """One exchange sweep on the card and on the CPU from the same cost
+    vectors, temperatures and uniforms: the same permutation and counts."""
+    import torch
+    from ccx_torch.goals.base import GOAL_REGISTRY
+    from ccx_torch.goals.stack import DEFAULT_GOAL_ORDER, soft_weights
+    from ccx_torch.search.annealer import draw_exchange, exchange_permutation, ladder_fracs
+
+    gen = torch.Generator().manual_seed(9)
+    n, K = 16, LADDER_TEMPS
+    G = len(DEFAULT_GOAL_ORDER)
+    hard = tuple(GOAL_REGISTRY[g].hard for g in DEFAULT_GOAL_ORDER)
+    cost = torch.rand(n, G, generator=gen) * 10
+    cost[:, :8] = (cost[:, :8] > 9.5).float()
+    temps = 0.3 * torch.pow(torch.full((n,), 1e-3), torch.from_numpy(ladder_fracs(K, n)))
+    out = {}
+    for parity in (0, 1):
+        u = draw_exchange(gen, n, "cpu")
+        got = []
+        for where in ("cpu", dev):
+            perm, att, acc = exchange_permutation(
+                cost.to(where), temps.to(where), u.to(where), n_temps=K,
+                hard_arr=torch.tensor(hard, device=where), weights=soft_weights(hard, where),
+                parity=parity)
+            got.append((perm.cpu().tolist(), int(att), int(acc)))
+        if got[0] != got[1]:
+            fail(f"exchange_permutation differs between the CPU and the card: {got}")
+        out[f"parity={parity}"] = {"attempted": got[0][1], "accepted": got[0][2]}
+    return out
+
+
+def warm_window_on_card(dev) -> dict:
+    """A warm window on the 64-broker cluster on the card against the CPU:
+    the same merged placement, touched mask and hot list, the pressure stack
+    within rtol 1e-5 / atol 1e-3; the CPU window's diff planned by the
+    device loop on both gives the same waves."""
+    import numpy as np
+    import torch
+    from ccx_torch import rungs
+    from ccx_torch.common.resources import Resource
+    from ccx_torch.goals.base import GoalConfig
+    from ccx_torch.goals.stack import DEFAULT_GOAL_ORDER
+    from ccx_torch.model.fixtures import RandomClusterSpec, random_cluster
+    from ccx_torch.model.tensor_model import model_arrays, model_from_arrays
+    from ccx_torch.optimizer import OptimizeOptions, optimize
+    from ccx_torch.search import incremental as inc
+    from ccx_torch.search.annealer import AnnealOptions
+    from ccx_torch.search.greedy import GreedyOptions
+    from ccx_torch.search.movement import plan_movement
+
+    cfg, goals = GoalConfig(), DEFAULT_GOAL_ORDER
+    host = random_cluster(RandomClusterSpec(**STEP_SPEC), device="cpu")
+    opts = OptimizeOptions(
+        anneal=AnnealOptions(n_chains=2, n_steps=20, moves_per_step=4, seed=1),
+        polish=GreedyOptions(n_candidates=64, max_iters=20), run_cold_greedy=False,
+        topic_rebalance_rounds=0, leader_pass_max_iters=10,
+        incremental=rungs.steady_options(), plan_enabled=True)
+    cold = optimize(host, cfg, goals, opts)
+    base = model_arrays(cold.model)
+    p_real = int(host.partition_valid.sum())
+    drifted = rungs.drift_metrics(base, np.random.default_rng(DRIFT_SEED), p_real, max(p_real // 10, 1))
+    got = []
+    for where in ("cpu", dev):
+        mb = model_from_arrays(base, host.num_topics, host.num_racks, where)
+        warm = inc.WarmStart(session="card-vs-cpu", generation=1, assignment=mb.assignment,
+                             leader_slot=mb.leader_slot, replica_disk=mb.replica_disk,
+                             pressure=inc._pressure_stack(mb, cfg))
+        # the snapshot keeps the input placement; the warm base is the cold result
+        snap = model_from_arrays({**model_arrays(host), **{k: drifted[k] for k in (
+            "leader_load", "follower_load")}}, host.num_topics, host.num_racks, where)
+        wm = inc.warm_model(snap, warm)
+        _, _, press, mask, count = inc.warm_init(wm, warm.pressure, cfg, goals)
+        evac, n_evac, n_struct = inc.drift_hot_list(wm, mask, goals, cfg)
+        got.append((wm, press.cpu(), mask.cpu(), evac.cpu(), n_evac, n_struct))
+    (wm_c, p_c, mk_c, ev_c, n_c, s_c), (wm_d, p_d, mk_d, ev_d, n_d, s_d) = got
+    for f in ("assignment", "leader_slot", "replica_disk"):
+        if not torch.equal(getattr(wm_c, f), getattr(wm_d, f).cpu()):
+            fail(f"warm window: merged {f} differs between the card and the CPU")
+    if not torch.equal(mk_c, mk_d) or not torch.equal(ev_c, ev_d) or (n_c, s_c) != (n_d, s_d):
+        fail("warm window: touched mask or hot list differs between the card and the CPU")
+    if not torch.allclose(p_c, p_d, rtol=RTOL, atol=ATOL):
+        fail("warm window: pressure stacks differ between the card and the CPU")
+    # the window itself on the CPU; its diff planned by the device loop on both
+    snap_c = model_from_arrays({**model_arrays(host), **{k: drifted[k] for k in (
+        "leader_load", "follower_load")}}, host.num_topics, host.num_racks, "cpu")
+    warm_c = inc.WarmStart(session="card-vs-cpu", generation=1, assignment=wm_c.assignment,
+                           leader_slot=wm_c.leader_slot, replica_disk=wm_c.replica_disk,
+                           pressure=None)
+    res = optimize(snap_c, cfg, goals, opts, warm_start=warm_c)
+    bpp = snap_c.leader_load[Resource.DISK]
+    plans = [plan_movement(res.diff, bpp.to(where), host.B, plan_options(opts, "device"))
+             for where in ("cpu", dev)]
+    oracle = plan_movement(res.diff, bpp, host.B, plan_options(opts, "numpy"))
+    if not (same_plan(plans[0], plans[1]) and same_plan(plans[0], oracle)):
+        fail("warm window: the plan's waves differ between the card, the CPU and the oracle")
+    return {"touched_brokers": int(mk_c.sum()), "hot_list": n_c, "structural": s_c,
+            "pressure_max_abs_err": float((p_c - p_d).abs().max()),
+            "window_verified": res.verification.ok, "diff_rows": res.diff.n,
+            "plan_waves": plans[0].n_waves}
 
 
 def main() -> None:
@@ -358,8 +715,9 @@ def main() -> None:
     from ccx_torch.model.tensor_model import model_arrays, model_from_arrays
     from ccx_torch.ops import broker_aggregates as agg_op
     from ccx_torch.optimizer import optimize
-    from ccx_torch.rungs import build_opts
+    from ccx_torch.rungs import build_opts, steady_options
     from ccx_torch.search.annealer import anneal
+    from ccx_torch.search.incremental import STORE
     from ccx_torch.search.greedy import SwapPolishOptions, greedy_optimize, swap_polish
     from ccx_torch.search.repair import hard_repair
 
@@ -490,9 +848,27 @@ def main() -> None:
             fail(f"{phase}: stack of the result disagrees between kernel and plain aggregates")
         if not torch.allclose(replain.costs, res.stack_after.costs, rtol=RTOL, atol=1e-6):
             fail(f"{phase}: stack costs of the result disagree between kernel and plain aggregates")
+        if rung == "target":
+            # the warm path's cold base
+            base = res
         del res, replain
 
-    # --- 6. result check: the card against the CPU ----------------------------
+    # --- 6, 7, 8. the warm path, a structural window and the ladder -----------
+    goal_names, opts, _ = build_opts("B5", "target")
+    line, snap, session = warm_path(b5, base, cfg, goal_names, opts, agg_op)
+    launches["warm"] = line["launches"]["broker_aggregates"]
+    warm_per_window = line["launches_per_window"]
+    emit(line)
+    del base
+    line = structural_window(snap, cfg, goal_names, opts, session, agg_op)
+    launches["structural"] = line["launches"]["broker_aggregates"]
+    emit(line)
+    repaired, _ = hard_repair(b5, cfg, goal_names)
+    line = ladder_run(repaired, cfg, goal_names, opts, agg_op)
+    launches["ladder"] = line["launches"]["broker_aggregates"]
+    emit(line)
+
+    # --- 9. result check: the card against the CPU ----------------------------
     small = random_cluster(bench_spec("B3"), device=dev)
     host = model_from_arrays(model_arrays(small), small.num_topics, small.num_racks, "cpu")
     s_dev = evaluate_stack(small, cfg, DEFAULT_GOAL_ORDER)
@@ -502,9 +878,10 @@ def main() -> None:
     if not torch.allclose(s_dev.costs.cpu(), s_cpu.costs, rtol=RTOL, atol=1e-6):
         fail("small-cluster stack costs differ between the card and the CPU")
     emit({"phase": "result-check", "replain_violations_equal": True, "small_cpu_equal": True,
-          "cpu_equal": card_against_cpu(dev)})
+          "cpu_equal": card_against_cpu(dev), "exchange_equal": exchange_on_card(dev),
+          "warm_window_equal": warm_window_on_card(dev)})
 
-    # --- 7. B6's check and the kernel times, after both paths; the times
+    # --- 10. B6's check and the kernel times, after the paths; the times
     # last of the two (once torch.profiler has traced the card, every later
     # launch in the process pays for the tracing) ------------------------------
     t = time.monotonic()
@@ -527,9 +904,7 @@ def main() -> None:
         emit(line)
     del wide, b6
 
-    # --- 8. profile ------------------------------------------------------------
-    goal_names, opts, _ = build_opts("B5", "target")
-    repaired, _ = hard_repair(b5, cfg, goal_names)
+    # --- 11. profile -----------------------------------------------------------
     k = PROFILE_STEPS
     single = dataclasses.replace(opts.anneal, n_steps=k, p_swap=0.0)
     batched = dataclasses.replace(opts.anneal, n_steps=k)
@@ -537,7 +912,15 @@ def main() -> None:
     swap = SwapPolishOptions(n_swap_candidates=64, n_lead_candidates=64, max_iters=k, patience=k)
     for warm in (single, batched):
         anneal(repaired, cfg, goal_names, dataclasses.replace(warm, n_steps=1))
-    emit({"phase": "profile", "model": "B5 after hard_repair",
+    warm_opts = dataclasses.replace(opts, incremental=steady_options(), plan_enabled=True)
+    syncs = {
+        "anneal_batched": host_syncs(lambda: anneal(repaired, cfg, goal_names, batched)),
+        "polish": host_syncs(lambda: greedy_optimize(repaired, cfg, goal_names, polish)),
+        "swap_polish": host_syncs(lambda: swap_polish(repaired, cfg, goal_names, swap)),
+        "warm_window": host_syncs(lambda: optimize(snap, cfg, goal_names, warm_opts,
+                                                   warm_start=STORE.get(session))),
+    }
+    emit({"phase": "profile", "model": "B5 after hard_repair", "host_syncs_per_call": syncs,
           "anneal": {"steps": k, "moves_per_step": single.moves_per_step, "p_swap": 0.0,
                      **device_busy(lambda: anneal(repaired, cfg, goal_names, single))},
           "polish": {"iters": k, **device_busy(
@@ -546,15 +929,19 @@ def main() -> None:
                              "p_swap": batched.p_swap, **device_busy(
                                  lambda: anneal(repaired, cfg, goal_names, batched))},
           "swap_polish": {"iters": k, "candidates": 128, **device_busy(
-              lambda: swap_polish(repaired, cfg, goal_names, swap))}})
+              lambda: swap_polish(repaired, cfg, goal_names, swap))},
+          "warm_window": {"model": "the warm path's last snapshot", **device_busy(
+              lambda: optimize(snap, cfg, goal_names, warm_opts,
+                               warm_start=STORE.get(session)))}})
 
-    # --- 9. summary lines ------------------------------------------------------
+    # --- 12. summary lines -----------------------------------------------------
     print(smi, flush=True)
     emit({"kernels": [{
         "name": "broker_aggregates", "route": "cuda",
         "source": "ccx_torch/csrc/broker_aggregates.cu",
         "replaces": "ccx/ops/mxu_aggregates.py:210",
-        "launches": launches["target"], "launches_by_path": launches, "max_abs_err": max_err,
+        "launches": launches["target"], "launches_by_path": launches,
+        "launches_per_warm_window": warm_per_window, "max_abs_err": max_err,
         "ms": times["call_ms"], "device_ms": times["device_ms"],
         "call_ms": times["call_ms"], "host_us": times["host_us"],
         "plain_ms": plain_ms, "bound_ms": times["bound_ms"],

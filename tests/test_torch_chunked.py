@@ -1,0 +1,209 @@
+"""The port's chunked drives: chunked runs equal one-loop runs, the taps record
+the states, and the plateau exit decides on the current chunk.
+
+* SA: a chunked run (chunks that do not divide the budget) equals the
+  one-loop run exactly, for the batched and the sequential engine.
+* Descents: ``greedy_optimize`` and ``swap_polish`` chunked equal their
+  one-loop runs exactly, with the host's early look at the stop flag on and
+  off (off, every chunk runs its inert tail after the stop).
+* Taps: ``record``/``lex_best_row``/``decode`` equal the JAX package's on the
+  same values; a descent's tap rows equal the states of runs cut at each
+  chunk's end.
+* ``drive_chunks``/``PlateauExit``: the pins of the JAX package's
+  ``tests/test_incremental.py`` (current row, window, ``min_chunks``, a
+  malformed row degrading to the fixed budget), and an error raised by the
+  row read propagates.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ccx.search import telemetry as jtel
+from ccx_torch.goals.base import GoalConfig
+from ccx_torch.goals.stack import DEFAULT_GOAL_ORDER
+from ccx_torch.model.fixtures import RandomClusterSpec, random_cluster
+from ccx_torch.search import annealer as tann
+from ccx_torch.search import greedy as tgreedy
+from ccx_torch.search import telemetry as ttel
+from ccx_torch.search.annealer import PlateauExit, drive_chunks
+
+CFG = GoalConfig()
+GOALS = DEFAULT_GOAL_ORDER
+WIDE = RandomClusterSpec(n_brokers=64, n_racks=8, n_topics=16, n_partitions=400,
+                         n_dead_brokers=2, seed=11)
+SMALL = RandomClusterSpec(n_brokers=14, n_racks=4, n_topics=10, n_partitions=300, seed=31)
+#: a cluster on which a small swap polish stops on its patience
+SPARSE = RandomClusterSpec(n_brokers=32, n_racks=4, n_topics=8, n_partitions=120, seed=3)
+
+
+@pytest.fixture(scope="module")
+def wide():
+    return random_cluster(WIDE, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def small():
+    return random_cluster(SMALL, device="cpu")
+
+
+def _same_model(a, b) -> None:
+    for f in ("assignment", "leader_slot", "replica_disk"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+@pytest.mark.parametrize("engine", ["batched", "sequential"])
+def test_chunked_sa_equals_one_loop(wide, small, engine):
+    m, opts = (wide, tann.AnnealOptions(n_chains=3, n_steps=11, moves_per_step=4, seed=5)) \
+        if engine == "batched" else (small, tann.AnnealOptions(n_chains=3, n_steps=30, seed=5))
+    flat = tann.anneal(m, CFG, GOALS, opts)
+    chunked = tann.anneal(m, CFG, GOALS, dataclasses.replace(opts, chunk_steps=4))
+    assert flat.engine == chunked.engine == engine
+    _same_model(flat.model, chunked.model)
+    assert torch.equal(flat.stack_after.costs, chunked.stack_after.costs)
+    assert (flat.best_chain, flat.n_accepted, flat.n_prop_kind, flat.n_acc_kind) == (
+        chunked.best_chain, chunked.n_accepted, chunked.n_prop_kind, chunked.n_acc_kind)
+    conv = chunked.convergence
+    assert conv["chunks"] == -(-opts.n_steps // 4) and conv["budget"] == opts.n_steps
+    n = opts.n_steps
+    decay = (opts.t1 / opts.t0) ** (1.0 / (n - 1))
+    ends = [min((i + 1) * 4, n) - 1 for i in range(conv["chunks"])]
+    assert conv["temperature"] == [round(float(np.float32(opts.t0 * decay**t)), 6) for t in ends]
+
+
+def _result_tuple(r):
+    return (r.n_iters, r.n_moves, r.n_prop_kind, r.n_acc_kind)
+
+
+@pytest.mark.parametrize("poll", [True, False])
+def test_chunked_greedy_equals_one_loop(small, poll, monkeypatch):
+    if not poll:
+        monkeypatch.setattr(tgreedy, "_poll_stop", lambda *a: False)
+    opts = tgreedy.GreedyOptions(n_candidates=4, max_iters=30, patience=1, seed=4)
+    mono = tgreedy.greedy_optimize(small, CFG, GOALS, dataclasses.replace(opts, chunk_iters=0))
+    for chunk in (7, 50):
+        ch = tgreedy.greedy_optimize(small, CFG, GOALS, dataclasses.replace(opts, chunk_iters=chunk))
+        _same_model(mono.model, ch.model)
+        assert _result_tuple(mono) == _result_tuple(ch)
+        assert torch.equal(mono.stack_after.costs, ch.stack_after.costs)
+    # the stop fired inside a chunk: its later iterations were inert
+    assert 0 < mono.n_moves and mono.n_iters < opts.max_iters and mono.convergence is None
+
+
+@pytest.mark.parametrize("poll", [True, False])
+def test_chunked_swap_polish_equals_one_loop(poll, monkeypatch):
+    if not poll:
+        monkeypatch.setattr(tgreedy, "_poll_stop", lambda *a: False)
+    m = random_cluster(SPARSE, device="cpu")
+    opts = tgreedy.SwapPolishOptions(n_swap_candidates=2, n_lead_candidates=2, max_iters=20,
+                                     patience=1, seed=2)
+    mono = tgreedy.swap_polish(m, CFG, GOALS, dataclasses.replace(opts, chunk_iters=0))
+    ch = tgreedy.swap_polish(m, CFG, GOALS, dataclasses.replace(opts, chunk_iters=6))
+    _same_model(mono.model, ch.model)
+    assert _result_tuple(mono) == _result_tuple(ch)
+    assert 0 < mono.n_moves and mono.n_iters < opts.max_iters
+
+
+def test_descent_tap_rows_equal_the_cut_runs(small):
+    opts = tgreedy.GreedyOptions(n_candidates=32, max_iters=9, patience=9, chunk_iters=3, seed=6)
+    res = tgreedy.greedy_optimize(small, CFG, GOALS, opts)
+    conv = res.convergence
+    assert conv["chunks"] == 3 and conv["chunk"] == 3 and conv["budget"] == 9
+    for i in range(3):
+        cut = tgreedy.greedy_optimize(small, CFG, GOALS, dataclasses.replace(opts, max_iters=3 * (i + 1)))
+        assert conv["proposed"][i] == list(cut.n_prop_kind)
+        assert conv["accepted"][i] == list(cut.n_acc_kind)
+        np.testing.assert_allclose(conv["series"][i], cut.stack_after.costs.numpy(), rtol=1e-5, atol=1e-3)
+    assert conv["temperature"] == [0.0] * 3
+
+
+def test_tap_record_and_decode_equal_jax():
+    rng = np.random.default_rng(3)
+    goals = ("a", "b", "c")
+    with ttel.taps(True):
+        ttel.set_max_chunks(3)
+        try:
+            ttap = ttel.make_tap(3, "cpu")
+            jtap = (jnp.zeros((3, 3 + jtel.EXTRA), jnp.float32), jnp.zeros((), jnp.int32))
+            for i in range(5):
+                vecs = rng.uniform(0, 5, size=(4, 3)).astype(np.float32)
+                vecs[1] = vecs[0]
+                prop, acc = rng.integers(0, 100, 3), rng.integers(0, 10, 3)
+                ex = (int(rng.integers(0, 4)), 1) if i % 2 else (None, None)
+                np.testing.assert_array_equal(
+                    ttel.lex_best_row(torch.from_numpy(vecs)).numpy(),
+                    np.asarray(jtel.lex_best_row(jnp.asarray(vecs))))
+                ttel.record(ttap, ttel.lex_best_row(torch.from_numpy(vecs)), torch.from_numpy(prop),
+                            torch.from_numpy(acc), 0.25 / (i + 1), *ex)
+                jtap = jtel.record(jtap, jtel.lex_best_row(jnp.asarray(vecs)), prop, acc,
+                                   0.25 / (i + 1), *ex)
+            np.testing.assert_array_equal(ttap[0].numpy(), np.asarray(jtap[0]))
+            assert int(ttap[1]) == int(jtap[1]) == 5
+            got = ttel.decode(ttap, goals, chunk_size=4, budget=20, ladder={"nTemps": 2})
+            assert got == jtel.decode(jtap, goals, chunk_size=4, budget=20, ladder={"nTemps": 2})
+            assert got["truncated"] and len(got["series"]) == 3
+        finally:
+            ttel.set_max_chunks(256)
+    assert ttel.decode(None, goals) is None
+
+
+def _count(carry, off):
+    return carry + 1, None
+
+
+def test_plateau_exit_reads_the_current_row():
+    energies = [10.0, 9.0, 9.0, 8.0, 7.0]
+    plateau = PlateauExit(row=lambda c: torch.tensor([energies[c - 1]]), window=1)
+    assert drive_chunks(_count, 0, total=5, chunk=1, plateau=plateau) == 3
+    assert plateau.exited and plateau.chunks_run == 3 and plateau.last_improved_chunk == 2
+    assert plateau.to_json(budget_chunks=5) == {
+        "exited": True, "chunksRun": 3, "window": 1, "lastImprovedChunk": 2, "chunksBudget": 5}
+
+
+def test_plateau_window_and_min_chunks():
+    flat = lambda c: [10.0]  # noqa: E731
+    assert drive_chunks(_count, 0, total=5, chunk=1, plateau=PlateauExit(row=flat, window=2)) == 3
+    assert drive_chunks(_count, 0, total=5, chunk=1,
+                        plateau=PlateauExit(row=flat, window=1, min_chunks=4)) == 4
+    p = PlateauExit(row=lambda c: [10.0 - c], window=1)
+    assert drive_chunks(_count, 0, total=3, chunk=1, plateau=p) == 3
+    assert not p.exited
+
+
+def test_malformed_tap_row_degrades_to_the_fixed_budget():
+    p = PlateauExit(row=lambda c: ["tap", "unavailable"], window=1)
+    assert drive_chunks(_count, 0, total=4, chunk=1, plateau=p) == 4
+    assert not p.exited
+    p = PlateauExit(row=lambda c: None, window=1)
+    assert drive_chunks(_count, 0, total=4, chunk=1, plateau=p) == 4
+
+
+def test_a_failing_row_read_propagates():
+    def failing(carry):
+        raise RuntimeError("device error")
+
+    with pytest.raises(RuntimeError, match="device error"):
+        drive_chunks(_count, 0, total=4, chunk=1, plateau=PlateauExit(row=failing))
+
+
+def test_done_flag_ends_the_drive():
+    assert drive_chunks(lambda c, off: (c + 1, torch.tensor(c + 1 >= 2)), 0, total=10, chunk=3) == 2
+
+
+def test_anneal_plateau_report(small):
+    opts = tann.AnnealOptions(n_chains=2, n_steps=16, chunk_steps=4, seed=1, plateau_window=1)
+    with ttel.taps(True):
+        res = tann.anneal(small, CFG, GOALS, opts)
+        res2 = tann.anneal(small, CFG, GOALS, dataclasses.replace(opts, plateau_window=2, seed=2))
+        res3 = tann.anneal(small, CFG, GOALS, dataclasses.replace(opts, plateau_window=0))
+    assert res.plateau["chunksBudget"] == 4 and 1 <= res.plateau["chunksRun"] <= 4
+    assert res2.plateau["window"] == 2
+    assert res3.plateau is None
+    with ttel.taps(False):
+        off = tann.anneal(small, CFG, GOALS, opts)
+    assert off.plateau is None and off.convergence is None

@@ -26,7 +26,8 @@ FORBIDDEN = ("jax", "flax", "ccx")
 
 def _port_sources() -> list[Path]:
     return sorted((ROOT / "ccx_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "tools" / "time_torch_aggregates.py"]
+        ROOT / "chip_smoke.py", ROOT / "tools" / "time_torch_aggregates.py",
+        ROOT / "tools" / "torch_lean_samples.py"]
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -260,3 +261,76 @@ def test_b5_lean_rung_on_the_cpu():
            "move_counters": res.move_counters, "sa_engine": res.sa_engine})
     assert res.verification.ok, res.verification.failures
     assert float(res.stack_after.hard_violations) == 0
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("where", ["cpu", pytest.param("cuda", marks=pytest.mark.gpu)])
+def test_warm_quality_within_tolerance_of_from_scratch_downscaled_b5(where):
+    """The JAX package's warm quality pin at 1/10 scale of B5 (100 brokers,
+    10k partitions, the full default stack): after a 1% drift (+-50%), a
+    warm re-proposal at the steady budget (``IncrementalOptions()``
+    defaults) stays within 8 violations of a from-scratch run on the same
+    snapshot on every metric-coupled tier, and TopicReplicaDistribution
+    stays within 5% + 16 of the warm base. On the CPU and, where there is
+    one, on the card."""
+    import dataclasses
+
+    import numpy as np
+
+    from ccx_torch.goals.base import GoalConfig
+    from ccx_torch.optimizer import OptimizeOptions, optimize
+    from ccx_torch.search import incremental as inc
+    from ccx_torch.search.annealer import AnnealOptions
+    from ccx_torch.search.greedy import GreedyOptions
+
+    dev = _card() if where == "cuda" else "cpu"
+    cfg = GoalConfig()
+    cold_opts = OptimizeOptions(
+        anneal=AnnealOptions(n_chains=8, n_steps=200, moves_per_step=8, seed=42, chunk_steps=200),
+        polish=GreedyOptions(n_candidates=256, max_iters=200, patience=16),
+        run_polish=False, run_cold_greedy=False, topic_rebalance_rounds=1,
+        topic_rebalance_max_sweeps=1024, topic_rebalance_move_leaders=True,
+        topic_rebalance_polish_iters=200, leader_pass_max_iters=60,
+        swap_polish_iters=60, swap_polish_post_iters=100,
+    )
+    m = fixtures.random_cluster(fixtures.RandomClusterSpec(
+        n_brokers=100, n_racks=10, n_topics=50, n_partitions=10_000, seed=7), device=dev)
+    cold0 = optimize(m, cfg, opts=cold_opts)
+    assert cold0.verification.ok, cold0.verification.failures
+    inc.STORE.clear()
+    warm = inc.remember("s-qual", 1, cold0.model, cfg)
+
+    rng = np.random.default_rng(123)
+    p_real = int(m.partition_valid.sum())
+    idx = rng.choice(p_real, max(p_real // 100, 1), replace=False)
+    ll = cold0.model.leader_load.cpu().numpy().copy()
+    fl = cold0.model.follower_load.cpu().numpy().copy()
+    s = rng.uniform(0.5, 1.5, size=(1, len(idx))).astype(np.float32)
+    ll[:, idx] *= s
+    fl[:, idx] *= s
+    m2 = cold0.model.replace(leader_load=torch.from_numpy(ll).to(m.device),
+                             follower_load=torch.from_numpy(fl).to(m.device))
+
+    wopts = dataclasses.replace(cold_opts, incremental=inc.IncrementalOptions(enabled=True))
+    res_w = optimize(m2, cfg, opts=wopts, warm_start=warm)
+    assert res_w.verification.ok, res_w.verification.failures
+    assert res_w.incremental["warmStart"] is True
+    assert float(res_w.stack_after.hard_violations) == 0
+    res_c = optimize(m2, cfg, opts=cold_opts)
+    assert res_c.verification.ok, res_c.verification.failures
+
+    wa = {n: float(v) for n, (v, _) in res_w.stack_after.by_name().items()}
+    ca = {n: float(v) for n, (v, _) in res_c.stack_after.by_name().items()}
+    print({"warm_quality": where, "warm": wa, "cold": ca, "warm_wall": res_w.wall_seconds,
+           "cold_wall": res_c.wall_seconds, "incremental": res_w.incremental})
+    metric_tiers = (
+        "ReplicaDistributionGoal", "PotentialNwOutGoal", "DiskUsageDistributionGoal",
+        "NetworkInboundUsageDistributionGoal", "NetworkOutboundUsageDistributionGoal",
+        "CpuUsageDistributionGoal", "LeaderReplicaDistributionGoal",
+        "LeaderBytesInDistributionGoal", "PreferredLeaderElectionGoal",
+    )
+    for goal in metric_tiers:
+        assert wa[goal] <= ca[goal] + 8, (goal, wa[goal], ca[goal])
+    base_trd = float(res_w.stack_before.by_name()["TopicReplicaDistributionGoal"][0])
+    assert wa["TopicReplicaDistributionGoal"] <= base_trd * 1.05 + 16, (
+        wa["TopicReplicaDistributionGoal"], base_trd)
