@@ -38,6 +38,7 @@ from ccx_torch.model.tensor_model import TensorClusterModel
 
 #: kernel launches made by ``broker_aggregates_cuda`` in this process
 LAUNCHES = 0
+_launch_lock = threading.Lock()
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "broker_aggregates.cu"
@@ -184,7 +185,7 @@ def topic_index(m: TensorClusterModel) -> TopicIndex:
     def drop(_ref, key=key):
         gone = _TOPIC_INDEX.get(key)
         if gone is not None and (gone.topic() is None or gone.valid() is None):
-            del _TOPIC_INDEX[key]
+            _TOPIC_INDEX.pop(key, None)
 
     entry.topic, entry.valid = weakref.ref(topic, drop), weakref.ref(valid, drop)
     entry.versions, entry.num_topics = versions, m.num_topics
@@ -248,8 +249,10 @@ def plan(m: TensorClusterModel, rows: str = "auto") -> dict:
     dev = _cuda_device(m)
     lib = _library(dev)
     out = (ctypes.c_int * 6)()
-    rc = lib.ccx_broker_aggregates_plan(
-        topic_index(m).order.numel(), m.R, m.B, m.num_topics, m.D, dev.index, ROWS[rows], out)
+    n_live = topic_index(m).order.numel()
+    with _launch_lock:
+        rc = lib.ccx_broker_aggregates_plan(n_live, m.R, m.B, m.num_topics, m.D, dev.index,
+                                            ROWS[rows], out)
     if rc != 0:
         raise RuntimeError(f"broker_aggregates kernel plan failed: cudaError {rc}")
     return {"rows": "shared" if out[0] else "global", "tiles": out[1], "BT": out[2],
@@ -282,7 +285,9 @@ def broker_aggregates_cuda(m: TensorClusterModel, rows: str = "auto") -> BrokerA
     lib = _library(dev)
     index = topic_index(m)
     buf = torch.empty(output_layout(B, T, D)[1], dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
+    # one launch at a time: the library's per-device plan cache is shared
+    # by every thread (fleet jobs launch from several)
+    with _launch_lock, torch.cuda.device(dev):
         rc = lib.ccx_broker_aggregates(
             index.order.data_ptr(), index.offsets.data_ptr(), index.order.numel(),
             m.assignment.data_ptr(), m.leader_slot.data_ptr(), m.replica_disk.data_ptr(),
@@ -290,9 +295,10 @@ def broker_aggregates_cuda(m: TensorClusterModel, rows: str = "auto") -> BrokerA
             P, R, B, T, D, ROWS[rows], buf.data_ptr(), dev.index,
             torch.cuda.current_stream(dev).cuda_stream,
         )
+        if rc == 0:
+            LAUNCHES += 1
     if rc != 0:
         raise RuntimeError(f"broker_aggregates kernel launch failed: cudaError {rc}")
-    LAUNCHES += 1
     return carve(buf, B, T, D)
 
 

@@ -25,22 +25,35 @@ a wave-scheduled movement plan of its diff (``ccx_torch.search.movement``),
 and ``plan_cost_tier`` breaks a lexicographic tie in the portfolio toward
 the placement that moves fewer bytes.
 
+Every call runs under a tracing root span (``ccx_torch.common.tracing``):
+each stage is a child span, chunk heartbeats attach to it, and the
+completed tree rides out as ``OptimizerResult.span_tree``. ``job=`` runs the
+call as a fleet job (``ccx_torch.search.scheduler.FLEET``): its chunk
+dispatches interleave with other jobs' at chunk boundaries, and a set
+``cancel`` event ends it with ``JobCancelled`` at the next one.
+
 It runs on the model's device (build the model on CUDA, the default, or pass
 ``device="cpu"`` to the model builder). ``OptimizeOptions`` carries the JAX
 package's defaults for every field it has. The JAX package's repair
-backends and overlap and its device mesh are not part of this pipeline.
+backends and overlap, its device mesh and its cost model are not part of
+this pipeline; ``OptimizerResult.to_json`` leaves out their keys
+(``costModel``, ``mesh``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 import time
 
+import numpy as np
 import torch
 
-from ccx_torch.goals.base import GoalConfig
+from ccx_torch.common.tracing import TRACER
+from ccx_torch.goals.base import GOAL_REGISTRY, GoalConfig
 from ccx_torch.goals.stack import DEFAULT_GOAL_ORDER, StackResult, evaluate_stack
+from ccx_torch.model.stats import ClusterModelStats, balancedness_score, cluster_model_stats
 from ccx_torch.model.tensor_model import TensorClusterModel
 from ccx_torch.proposals import ColumnarDiff, columnar_diff
 from ccx_torch.search.annealer import AnnealOptions, allows_inter_broker, anneal, hot_partition_list
@@ -70,6 +83,12 @@ class OptimizeOptions:
     #: polish rounds in all while hard violations remain, each after a fresh
     #: hard_repair of the current placement
     max_repair_rounds: int = 3
+    #: verification holds every hard goal at zero violations (off: no hard
+    #: goal's violations may increase)
+    require_hard_zero: bool = True
+    #: verification checks that no replica is left on a dead broker
+    #: (never for a stack that moves replicas within brokers only)
+    check_evacuation: bool = True
     #: end with a leadership-only greedy pass
     run_leader_pass: bool = True
     #: shed-and-re-polish rounds of the TopicReplicaDistribution stage (0: off)
@@ -143,8 +162,25 @@ class OptimizerResult:
     warm_pressure: torch.Tensor | None = None
     #: the movement plan of the diff (``plan_enabled``)
     plan: object | None = None
-    #: the input model
+    #: the input model, kept so the ClusterModelStats blocks can be
+    #: derived lazily (each costs an aggregates launch and a host copy)
     input_model: TensorClusterModel | None = None
+    #: the completed span tree of this ``optimize`` call
+    span_tree: dict | None = None
+
+    @property
+    def stats_before(self) -> ClusterModelStats | None:
+        if self.input_model is None:
+            return None
+        if not hasattr(self, "_stats_before"):
+            self._stats_before = cluster_model_stats(self.input_model)
+        return self._stats_before
+
+    @property
+    def stats_after(self) -> ClusterModelStats | None:
+        if not hasattr(self, "_stats_after"):
+            self._stats_after = cluster_model_stats(self.model)
+        return self._stats_after
 
     @property
     def num_replica_movements(self) -> int:
@@ -153,6 +189,82 @@ class OptimizerResult:
     @property
     def num_leadership_movements(self) -> int:
         return self.diff.num_leadership_movements
+
+    def violation_summary(self) -> dict[str, float]:
+        return {n: v for n, (v, _) in self.stack_after.by_name().items() if v > 0}
+
+    def goal_summary_columnar(self) -> dict:
+        """``goalSummary`` as flat typed arrays (the streamed result's
+        form): one vector per column; values are float32 on the wire, the
+        goal names a plain list."""
+        before = self.stack_before.by_name()
+        after = self.stack_after.by_name()
+        names = list(self.stack_after.names)
+        return {
+            "goal": names,
+            "hard": np.array([bool(GOAL_REGISTRY[n].hard) for n in names], np.uint8),
+            "violationsBefore": np.array([before[n][0] for n in names], np.float32),
+            "violationsAfter": np.array([after[n][0] for n in names], np.float32),
+            "costBefore": np.array([before[n][1] for n in names], np.float32),
+            "costAfter": np.array([after[n][1] for n in names], np.float32),
+        }
+
+    def to_json(
+        self,
+        include_proposals: bool = True,
+        include_stats: bool = True,
+        include_goal_summary: bool = True,
+    ) -> dict:
+        """The result block of the sidecar's wire, keyed as the JAX
+        package's (``costModel`` and ``mesh`` are never present).
+        ``include_stats=False`` omits the ClusterModelStats blocks (each an
+        aggregates launch and a host copy; the sidecar omits them from warm
+        results); ``include_proposals=False`` omits the per-row dicts
+        (columnar consumers); ``include_goal_summary=False`` omits the
+        per-goal dicts (the streamed result ships
+        ``goal_summary_columnar`` instead)."""
+        before = self.stack_before.by_name()
+        after = self.stack_after.by_name()
+        out: dict = {}
+        if include_proposals:
+            out["proposals"] = self.diff.rows_json()
+        out["numReplicaMovements"] = self.num_replica_movements
+        out["numLeadershipMovements"] = self.num_leadership_movements
+        if include_goal_summary:
+            out["goalSummary"] = [
+                {
+                    "goal": n,
+                    "hard": GOAL_REGISTRY[n].hard,
+                    "violationsBefore": before[n][0],
+                    "violationsAfter": after[n][0],
+                    "costBefore": before[n][1],
+                    "costAfter": after[n][1],
+                }
+                for n in self.stack_after.names
+            ]
+        out["verified"] = self.verification.ok
+        out["verificationFailures"] = self.verification.failures
+        out["optimizationFailures"] = self.verification.infeasible
+        out["wallSeconds"] = self.wall_seconds
+        out["phaseSeconds"] = {k: round(v, 3) for k, v in self.phase_seconds.items()}
+        out["moveCounters"] = self.move_counters
+        if self.plan is not None:
+            out["plan"] = self.plan.summary_json()
+        for key, val in (
+            ("spanTree", self.span_tree),
+            ("incremental", self.incremental),
+            ("convergence", self.convergence),
+        ):
+            if val:
+                out[key] = val
+        if include_stats and self.stats_before is not None and self.stats_after is not None:
+            out["clusterModelStats"] = {
+                "before": self.stats_before.to_json(),
+                "after": self.stats_after.to_json(),
+            }
+            out["onDemandBalancednessScoreBefore"] = balancedness_score(self.stats_before)
+            out["onDemandBalancednessScoreAfter"] = balancedness_score(self.stats_after)
+        return out
 
 
 def _lex_better(a: StackResult, b: StackResult) -> bool:
@@ -215,11 +327,14 @@ def _sync(device: torch.device) -> None:
 
 class _Run:
     """The bookkeeping one pipeline run shares between its stages: phase
-    seconds (each phase ended by a device synchronize), the per-move-kind
-    counters and the convergence segments by phase."""
+    seconds, the per-move-kind counters and the convergence segments by
+    phase. Each phase calls ``progress_cb(name)`` as it starts, runs under
+    a tracing span, and ends with a device synchronize, so its span wall
+    (the ``phase_seconds`` entry) covers its device work."""
 
-    def __init__(self, device: torch.device) -> None:
+    def __init__(self, device: torch.device, progress_cb=None) -> None:
         self.device = device
+        self.progress_cb = progress_cb
         self.phases: dict[str, float] = {}
         self.kind_prop = [0, 0, 0]
         self.kind_acc = [0, 0, 0]
@@ -233,11 +348,16 @@ class _Run:
             self.conv_phases.setdefault(phase, []).append(r.convergence)
 
     @contextlib.contextmanager
-    def phase(self, name: str):
-        start = time.monotonic()
-        yield
-        _sync(self.device)
-        self.phases[name] = time.monotonic() - start
+    def phase(self, name: str, **attrs):
+        if self.progress_cb is not None:
+            self.progress_cb(name)
+        s = TRACER.start(name, kind="phase", device=self.device, **attrs)
+        try:
+            yield
+            _sync(self.device)
+        finally:
+            TRACER.end(s)
+            self.phases[name] = s.wall_s
 
     def move_counters(self) -> dict:
         return {
@@ -257,22 +377,50 @@ def optimize(
     goal_names: tuple[str, ...] = DEFAULT_GOAL_ORDER,
     opts: OptimizeOptions = OptimizeOptions(),
     warm_start: WarmStart | None = None,
+    progress_cb=None,
+    job: tuple[str, int] | str | None = None,
+    cancel: threading.Event | None = None,
 ) -> OptimizerResult:
     """Full-stack proposal computation: hard-goal repair sweeps establish
     feasibility, batched SA balances the soft goals without breaking hard
     ones, greedy polish and leadership passes clean up residuals, and the
     result is diffed and verified. With ``warm_start`` and
-    ``opts.incremental`` armed, the warm pipeline (module docstring)."""
+    ``opts.incremental`` armed, the warm pipeline (module docstring).
+
+    ``progress_cb(phase)`` is called as each phase starts. ``job`` (a
+    cluster id, or ``(cluster_id, priority)``) registers the call on the
+    fleet scheduler for its whole duration, and ``cancel`` (an event the
+    transport sets when its client goes away) cancels it at the next chunk
+    boundary with ``JobCancelled``. With no other job registered the
+    scheduled run equals the unscheduled one."""
+    if job is not None:
+        from ccx_torch.search.scheduler import FLEET
+
+        cluster_id, priority = job if isinstance(job, tuple) else (job, 0)
+        with FLEET.job(str(cluster_id), int(priority), cancel_event=cancel):
+            return optimize(m, cfg, goal_names, opts, warm_start, progress_cb)
     warm = warm_start if (warm_start is not None and opts.incremental.armed) else None
-    if warm is not None:
-        try:
-            return _optimize_warm(m, cfg, goal_names, opts, warm)
-        except ColdStartRequired as e:
-            res = _optimize(m, cfg, goal_names, opts)
-            return dataclasses.replace(
-                res, incremental={"warmStart": False, "coldStart": True, "reason": str(e)}
-            )
-    return _optimize(m, cfg, goal_names, opts)
+    root = TRACER.start(
+        "optimize", kind="op", P=int(m.P), B=int(m.B), goals=len(goal_names),
+        **({"warm": True} if warm is not None else {}),
+    )
+    try:
+        res = None
+        if warm is not None:
+            try:
+                res = _optimize_warm(m, cfg, goal_names, opts, warm, progress_cb)
+            except ColdStartRequired as e:
+                res = _optimize(m, cfg, goal_names, opts, progress_cb)
+                res = dataclasses.replace(
+                    res, incremental={"warmStart": False, "coldStart": True, "reason": str(e)}
+                )
+        if res is None:
+            res = _optimize(m, cfg, goal_names, opts, progress_cb)
+    finally:
+        # the root closes on every exit path: a leaked root would nest
+        # every later call on this thread under a dead tree
+        TRACER.end(root)
+    return dataclasses.replace(res, span_tree=root.to_json())
 
 
 def _optimize(
@@ -280,10 +428,17 @@ def _optimize(
     cfg: GoalConfig,
     goal_names: tuple[str, ...],
     opts: OptimizeOptions,
+    progress_cb=None,
 ) -> OptimizerResult:
     """The cold pipeline (module docstring)."""
+    from ccx_torch.common.faults import FAULTS
+
+    # chaos seam: the cold pipeline's entry stands in for a failed build
+    # or launch — the RPC fails structured, nothing is banked
+    if FAULTS.armed:
+        FAULTS.hit("compile")
     t0 = time.monotonic()
-    run = _Run(m.device)
+    run = _Run(m.device, progress_cb)
     phase, tally = run.phase, run.tally
 
     inter = allows_inter_broker(goal_names)
@@ -403,9 +558,10 @@ def _optimize(
             proposals=dcols,
             # a stack that moves replicas within brokers only cannot
             # evacuate a dead broker
-            check_evacuation=inter,
+            check_evacuation=opts.check_evacuation and inter,
             stack_before=stack_before,
             stack_after=stack_after,
+            require_hard_zero=opts.require_hard_zero,
         )
     return OptimizerResult(
         diff=dcols,
@@ -431,6 +587,7 @@ def _optimize_warm(
     goal_names: tuple[str, ...],
     opts: OptimizeOptions,
     warm: WarmStart,
+    progress_cb=None,
 ) -> OptimizerResult:
     """The warm pipeline: ``incremental.reoptimize``'s search, preferred-
     leader finalize, one fused evaluation of the final placement (with the
@@ -440,7 +597,7 @@ def _optimize_warm(
     from ccx_torch.search import incremental as inc
 
     t0 = time.monotonic()
-    run = _Run(m.device)
+    run = _Run(m.device, progress_cb)
     phase = run.phase
     inter = allows_inter_broker(goal_names)
     (model, stack_before, stack_after, search, info, base_model, bank_press,
@@ -468,9 +625,10 @@ def _optimize_warm(
         verification = verify_optimization(
             m, model, cfg, goal_names,
             proposals=dcols,
-            check_evacuation=inter,
+            check_evacuation=opts.check_evacuation and inter,
             stack_before=stack_before,
             stack_after=stack_after,
+            require_hard_zero=opts.require_hard_zero,
         )
         if not verification.ok:
             # a lex-legitimate trade the per-goal verifier rejects: ship the
@@ -480,9 +638,10 @@ def _optimize_warm(
             base_verification = verify_optimization(
                 m, base_model, cfg, goal_names,
                 proposals=base_diff,
-                check_evacuation=inter,
+                check_evacuation=opts.check_evacuation and inter,
                 stack_before=stack_before,
                 stack_after=stack_before,
+                require_hard_zero=opts.require_hard_zero,
             )
             if base_verification.ok:
                 model = base_model

@@ -31,6 +31,19 @@ class ExecutionProposal:
     old_disks: tuple[int, ...] = ()
     new_disks: tuple[int, ...] = ()
 
+    def to_json(self) -> dict:
+        out = {
+            "topicPartition": {"topic": int(self.topic), "partition": int(self.partition)},
+            "oldLeader": int(self.old_leader),
+            "newLeader": int(self.new_leader),
+            "oldReplicas": [int(b) for b in self.old_replicas],
+            "newReplicas": [int(b) for b in self.new_replicas],
+        }
+        if self.old_disks or self.new_disks:
+            out["oldDisks"] = [int(d) for d in self.old_disks]
+            out["newDisks"] = [int(d) for d in self.new_disks]
+        return out
+
 
 #: column order of a ``ColumnarDiff``
 COLUMNS = (
@@ -95,6 +108,9 @@ class ColumnarDiff:
                 )
             ]
         return self._rows
+
+    def rows_json(self) -> list[dict]:
+        return [p.to_json() for p in self.rows]
 
 
 def columnar_diff(before: TensorClusterModel, after: TensorClusterModel) -> ColumnarDiff:

@@ -15,8 +15,9 @@ budget and the pipeline stages:
   portfolio) at the largest effort; ``custom`` equals ``lean``'s stages
   with ``full``'s effort and the portfolio on.
 
-``steady_options`` is the bench's steady-state warm budget and
-``drift_metrics`` its drift rule for one metrics window.
+``steady_options`` is the bench's steady-state warm budget,
+``drift_metrics`` its drift rule for one metrics window, and
+``wire_options`` a rung's options as a sidecar Propose's ``options`` map.
 
 The bench's environment overrides (chains, steps, moves, polish iterations,
 the portfolio switch) and its device mesh are not part of this copy.
@@ -113,3 +114,44 @@ def drift_metrics(arrays: dict, rng, p_real: int, n_drift: int) -> dict:
         a[:, idx] *= rng.uniform(0.5, 1.5, size=(1, n_drift)).astype(np.float32)
         new[field] = a
     return new
+
+
+def wire_options(opts: OptimizeOptions) -> dict:
+    """``opts`` as a sidecar Propose's ``options`` map (the keys of
+    ``ccx_torch.sidecar.wire.PROPOSE_OPTION_KEYS``, read off the built
+    dataclass), so a wire Propose runs the rung and not the server's
+    defaults. The incremental block rides along; the server arms it only
+    on a ``warm_start`` request."""
+    a, g, w = opts.anneal, opts.polish, opts.incremental
+    return {
+        "chains": a.n_chains, "steps": a.n_steps, "moves_per_step": a.moves_per_step,
+        "seed": a.seed, "chunk_steps": a.chunk_steps, "p_swap": a.p_swap,
+        "p_swap_end": a.p_swap_end, "swap_coupling": a.swap_coupling, "n_temps": a.n_temps,
+        "exchange_interval": a.exchange_interval, "bf16_scoring": a.bf16_scoring,
+        "polish_candidates": g.n_candidates, "polish_max_iters": g.max_iters,
+        "polish_patience": g.patience, "polish_batch_moves": g.batch_moves,
+        "polish_chunk_iters": g.chunk_iters,
+        "check_evacuation": opts.check_evacuation, "max_repair_rounds": opts.max_repair_rounds,
+        "require_hard_zero": opts.require_hard_zero, "run_polish": opts.run_polish,
+        "run_leader_pass": opts.run_leader_pass, "run_cold_greedy": opts.run_cold_greedy,
+        "topic_rebalance_rounds": opts.topic_rebalance_rounds,
+        "topic_rebalance_max_sweeps": opts.topic_rebalance_max_sweeps,
+        "topic_rebalance_move_leaders": opts.topic_rebalance_move_leaders,
+        "topic_rebalance_guarded": opts.topic_rebalance_guarded,
+        "topic_rebalance_polish_iters": opts.topic_rebalance_polish_iters,
+        "leader_pass_max_iters": opts.leader_pass_max_iters,
+        "swap_polish_iters": opts.swap_polish_iters,
+        "swap_polish_post_iters": opts.swap_polish_post_iters,
+        "swap_polish_candidates": opts.swap_polish_candidates,
+        "swap_polish_guarded": opts.swap_polish_guarded,
+        "swap_polish_chunk_iters": opts.swap_polish_chunk_iters,
+        "warm_swap_iters": w.warm_swap_iters, "warm_swap_patience": w.warm_swap_patience,
+        "warm_swap_candidates": w.warm_swap_candidates, "warm_steps": w.warm_steps,
+        "warm_chunk_steps": w.warm_chunk_steps, "warm_chains": w.warm_chains,
+        "warm_moves": w.warm_moves_per_step, "plateau_window": w.plateau_window,
+        "warm_t0": w.warm_t0, "warm_leader_iters": w.warm_leader_iters,
+        "plan_enabled": opts.plan_enabled, "plan_cost_tier": opts.plan_cost_tier,
+        "plan_max_waves": opts.plan_max_waves, "plan_broker_cap": opts.plan_broker_cap,
+        "plan_wave_bytes_mb": opts.plan_wave_bytes_mb,
+        "plan_throttle_mbps": opts.plan_throttle_mb_per_sec,
+    }

@@ -40,6 +40,7 @@ chunked run with ``n_temps=1`` equals the one-loop run exactly.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 
@@ -1206,12 +1207,65 @@ def _row_values(row) -> list[float]:
     return [float(x) for x in row]
 
 
-def drive_chunks(run_one, carry, *, total: int, chunk: int, plateau: PlateauExit | None = None):
+class _ProbeReader:
+    """Reads a chunk's probe scalar without a host sync of its own. On a
+    CUDA tensor the value is copied into pinned memory behind the queued
+    work and read once that copy has landed (an event query); until then
+    the last landed value stands, so the energy may be a chunk stale. A
+    CPU tensor is read directly."""
+
+    def __init__(self) -> None:
+        self.buf = None
+        self.event = None
+        self.pending = False
+        self.value: float | None = None
+
+    def push(self, val) -> None:
+        if val.device.type != "cuda":
+            self.value = float(val)
+            return
+        if self.buf is None:
+            self.buf = torch.zeros((), dtype=val.dtype, pin_memory=True)
+            self.event = torch.cuda.Event()
+        # a copy still in flight keeps the buffer: the newer value waits
+        # for the next chunk rather than racing it
+        self.poll()
+        if not self.pending:
+            self.buf.copy_(val, non_blocking=True)
+            self.event.record()
+            self.pending = True
+
+    def poll(self) -> float | None:
+        if self.pending and self.event.query():
+            self.value = float(self.buf)
+            self.pending = False
+        return self.value
+
+
+def drive_chunks(run_one, carry, *, total: int, chunk: int, probe=None,
+                 plateau: PlateauExit | None = None):
     """Call ``run_one(carry, off)`` once per chunk offset of ``range(0,
     total, chunk)``, threading the carry through. ``run_one`` returns
     ``(carry, done)``; a truthy ``done`` (the descents' stop flag, read
     here: one host read per chunk) ends the loop. SA chunks return None and
     are never read.
+
+    When the calling thread runs under a fleet job
+    (``ccx_torch.search.scheduler.FLEET.job``, the optimizer's ``job=``
+    entry), the drive counts toward the scheduler's occupancy and every
+    chunk DISPATCH (``run_one``) runs under a grant of the multi-job run
+    queue: concurrent jobs interleave their chunks on the card, and a
+    cancelled job raises ``JobCancelled`` at its next grant. With no
+    ambient job the loop is ungated.
+
+    Every chunk emits one flight-recorder heartbeat (``TRACER.heartbeat``:
+    chunk index, offset, total and energy). ``probe(carry) -> 0-d tensor``
+    (the convergence taps' tier-0 cost) supplies the energy without a host
+    sync of its own: its value is copied behind the chunk and read when
+    that copy has landed (``_ProbeReader``) — on a descent, after the stop
+    flag's read, which drains the queue, so the energy is the current
+    chunk's; on SA chunks, usually the previous chunk's. A plateau-armed
+    drive takes the energy from its own row read instead.
 
     ``plateau`` arms the plateau-terminated budget: after each chunk the
     drive reads ``plateau.row(carry)`` and stops once ``plateau.window``
@@ -1221,37 +1275,53 @@ def drive_chunks(run_one, carry, *, total: int, chunk: int, plateau: PlateauExit
     drops the plateau exit and the drive runs its fixed budget; an error
     from the read itself (a failed device op) propagates."""
     from ccx_torch.common.convergence import lex_improved
+    from ccx_torch.common.tracing import TRACER
+    from ccx_torch.search.scheduler import FLEET
 
     step = max(int(chunk), 1)
     n = max(int(total), 0)
+    job = FLEET.current()
+    reader = _ProbeReader() if probe is not None else None
     best_vec = None
     since_improve = 0
-    for i, off in enumerate(range(0, n, step)):
-        carry, done = run_one(carry, off)
-        done_plateau = False
-        if plateau is not None:
-            row = plateau.row(carry)
-            try:
-                vec = _row_values(row)
-            except (TypeError, ValueError):
-                plateau = None
+    with FLEET.drive(job) if job is not None else contextlib.nullcontext():
+        for i, off in enumerate(range(0, n, step)):
+            if job is not None:
+                with FLEET.chunk(job):
+                    carry, done = run_one(carry, off)
             else:
-                plateau.chunks_run = i + 1
-                if best_vec is None or lex_improved(vec, best_vec):
-                    best_vec = list(vec)
-                    since_improve = 0
-                    plateau.last_improved_chunk = i + 1
+                carry, done = run_one(carry, off)
+            if reader is not None and plateau is None:
+                reader.push(probe(carry))
+            stop = done is not None and bool(done)
+            energy = None
+            done_plateau = False
+            if plateau is not None:
+                row = plateau.row(carry)
+                try:
+                    vec = _row_values(row)
+                except (TypeError, ValueError):
+                    plateau = None
                 else:
-                    since_improve += 1
-                done_plateau = (
-                    i + 1 >= max(plateau.min_chunks, 1)
-                    and since_improve >= max(plateau.window, 1)
-                )
-                plateau.exited = done_plateau and off + step < n
-        if done is not None and bool(done):
-            break
-        if done_plateau:
-            break
+                    # this read is the chunk's sync: the energy is current
+                    energy = vec[0] if vec else None
+                    plateau.chunks_run = i + 1
+                    if best_vec is None or lex_improved(vec, best_vec):
+                        best_vec = list(vec)
+                        since_improve = 0
+                        plateau.last_improved_chunk = i + 1
+                    else:
+                        since_improve += 1
+                    done_plateau = (
+                        i + 1 >= max(plateau.min_chunks, 1)
+                        and since_improve >= max(plateau.window, 1)
+                    )
+                    plateau.exited = done_plateau and off + step < n
+            if energy is None and reader is not None:
+                energy = reader.poll()
+            TRACER.heartbeat(i, offset=off, total=n, energy=energy)
+            if stop or done_plateau:
+                break
     return carry
 
 
@@ -1504,7 +1574,9 @@ def anneal(
             plateau = PlateauExit(
                 row=lambda _: telemetry.current_row(tap, G), window=int(opts.plateau_window)
             )
-        drive_chunks(run_one, None, total=n, chunk=chunk, plateau=plateau)
+        # heartbeat energy: the best chain's top-tier cost
+        probe = (lambda _: state.cost_vec[:, 0].min()) if tap is not None else None
+        drive_chunks(run_one, None, total=n, chunk=chunk, probe=probe, plateau=plateau)
         ladder = None
         if n_temps > 1:
             ladder = {

@@ -375,7 +375,9 @@ def _drive_descent(iteration, ss: SearchState, goal_names, opts, dev):
                 telemetry.record(tap, ss.cost_vec[0], ss.n_prop_kind[0], ss.n_acc_kind[0], 0.0)
             return carry, ~live()
 
-        drive_chunks(run_one, None, total=opts.max_iters, chunk=opts.chunk_iters)
+        # heartbeat energy: the top-tier cost, read after the stop flag
+        probe = (lambda _: ss.cost_vec[0, 0]) if tap is not None else None
+        drive_chunks(run_one, None, total=opts.max_iters, chunk=opts.chunk_iters, probe=probe)
         convergence = telemetry.decode(
             tap, goal_names, chunk_size=opts.chunk_iters, budget=opts.max_iters
         )

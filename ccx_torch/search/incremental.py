@@ -25,7 +25,9 @@ result stack and the next window's pressure bank.
 The subsystem is off unless ``IncrementalOptions.enabled``; the environment
 ``CCX_INCREMENTAL=0`` disables it outright. The store below is
 process-wide: ``remember`` banks into it and callers read it back with
-``STORE.get``.
+``STORE.get``. Its bases are byte-priced on the unified device-memory
+ledger (``ccx_torch.common.devmem.DEVMEM``), beside the sidecar's resident
+models.
 """
 
 from __future__ import annotations
@@ -35,9 +37,12 @@ import dataclasses
 import os
 import threading
 import time
+import weakref
 
 import torch
 
+from ccx_torch.common.devmem import DEVMEM
+from ccx_torch.common.faults import FAULTS
 from ccx_torch.goals.base import GoalConfig
 from ccx_torch.goals.stack import StackResult, evaluate_stack
 from ccx_torch.model.aggregates import broker_aggregates
@@ -120,6 +125,9 @@ class WarmStart:
     pressure: torch.Tensor | None = None
     #: monotonic stamp for LRU eviction
     stamp: float = 0.0
+    #: install token: the ledger's eviction callback drops the base only
+    #: while the token it was admitted for is still the stored one
+    token: int = 0
 
     def shape_key(self) -> tuple:
         return (tuple(self.assignment.shape), tuple(self.leader_slot.shape))
@@ -139,28 +147,89 @@ class PlacementStore:
 
     ``put`` keeps placements by reference (no copy); ``get(session,
     base_generation)`` returns the stored placement only when the
-    generation matches (None asks for the latest). At most
-    ``max_sessions`` sessions stay, the least recently used going first; an
-    evicted session cold-starts on its next window."""
+    generation matches (None asks for the latest). Residency is priced in
+    bytes on the device-memory ledger ``ledger`` (``STORE`` shares the
+    process-wide ``DEVMEM``; priority-aware eviction: an urgent job's base
+    is never displaced by a dryrun admission), with ``max_sessions`` kept
+    as a count backstop; ``ledger=None`` leaves the count LRU alone. An
+    evicted session cold-starts on its next window (``ColdStartRequired``
+    with the reason on the result; eviction is never an error)."""
 
-    def __init__(self, max_sessions: int = 32) -> None:
+    def __init__(self, max_sessions: int = 32, ledger=None) -> None:
         self._lock = threading.Lock()
         self._by_session: dict[str, WarmStart] = {}
         self.max_sessions = int(max_sessions)
+        self._seq = 0
         self.hits = 0
         self.misses = 0
         self.evictions = 0
+        self._ledger = ledger
+        self._ns = f"store{id(self):x}"
+        self._self_ref = weakref.ref(self)
+        if ledger is not None:
+            # a dropped store must not leave phantom bytes on a shared
+            # ledger: finalize releases this instance's namespace at GC
+            weakref.finalize(self, ledger.release_namespace, self._ns)
 
-    def put(self, warm: WarmStart) -> None:
+    def _ledger_key(self, session: str) -> str:
+        return f"{self._ns}:{session}"
+
+    def _ledger_evicted(self, key: str, token: int) -> None:
+        """Ledger eviction callback: drop only this store's entry. A
+        callback that lost a race to a newer bank of the session (another
+        token) leaves the newer base alone."""
+        session = key.split(":", 1)[1]
+        with self._lock:
+            cur = self._by_session.get(session)
+            if cur is not None and cur.token == token:
+                del self._by_session[session]
+                self.evictions += 1
+
+    def put(self, warm: WarmStart, priority: int | None = None,
+            job: str | None = None) -> None:
+        """Store a base and price it on the ledger under ``priority`` (None:
+        the ambient fleet job's) and the fleet-job label ``job`` (default:
+        the session)."""
+        count_victims: list[str] = []
         with self._lock:
             warm.stamp = time.monotonic()
+            self._seq += 1
+            warm.token = self._seq
             self._by_session[warm.session] = warm
             while len(self._by_session) > max(self.max_sessions, 1):
                 victim = min(self._by_session, key=lambda s: self._by_session[s].stamp)
                 del self._by_session[victim]
                 self.evictions += 1
+                count_victims.append(victim)
+        if self._ledger is None:
+            return
+        for victim in count_victims:
+            self._ledger.release("warmBase", self._ledger_key(victim))
+        ref = self._self_ref
+        token = warm.token
 
-    def get(self, session: str, base_generation: int | None = None) -> WarmStart | None:
+        def _evict(key, _ref=ref, _token=token):
+            store = _ref()
+            if store is not None:
+                store._ledger_evicted(key, _token)
+
+        self._ledger.admit(
+            "warmBase", self._ledger_key(warm.session), warm_device_bytes(warm),
+            priority=priority, job=job or warm.session, evictor=_evict,
+        )
+        # a packing eviction between the store write and the admit popped
+        # the base: its re-added entry would price bytes no longer resident
+        with self._lock:
+            cur = self._by_session.get(warm.session)
+            resident = cur is not None and cur.token == token
+        if not resident:
+            self._ledger.release("warmBase", self._ledger_key(warm.session))
+
+    def get(self, session: str, base_generation: int | None = None,
+            priority: int | None = None, job: str | None = None) -> WarmStart | None:
+        """The session's base at ``base_generation`` (None: the latest).
+        A hit refreshes the ledger entry: the reader's priority becomes the
+        entry's (the last user wins) and ``job`` relabels it."""
         with self._lock:
             warm = self._by_session.get(session)
             if warm is None or (
@@ -170,7 +239,9 @@ class PlacementStore:
                 return None
             warm.stamp = time.monotonic()
             self.hits += 1
-            return warm
+        if self._ledger is not None:
+            self._ledger.touch("warmBase", self._ledger_key(session), priority=priority, job=job)
+        return warm
 
     def generation(self, session: str) -> int | None:
         with self._lock:
@@ -179,11 +250,17 @@ class PlacementStore:
 
     def drop(self, session: str) -> None:
         with self._lock:
-            self._by_session.pop(session, None)
+            had = self._by_session.pop(session, None) is not None
+        if had and self._ledger is not None:
+            self._ledger.release("warmBase", self._ledger_key(session))
 
     def clear(self) -> None:
         with self._lock:
+            sessions = list(self._by_session)
             self._by_session.clear()
+        if self._ledger is not None:
+            for session in sessions:
+                self._ledger.release("warmBase", self._ledger_key(session))
 
     def device_bytes(self) -> int:
         with self._lock:
@@ -195,14 +272,15 @@ class PlacementStore:
                 "sessions": len(self._by_session),
                 "maxSessions": self.max_sessions,
                 "deviceBytes": sum(warm_device_bytes(w) for w in self._by_session.values()),
+                "ledger": self._ledger is not None,
                 "hits": self.hits,
                 "misses": self.misses,
                 "evictions": self.evictions,
             }
 
 
-#: the process-wide store
-STORE = PlacementStore()
+#: the process-wide store, priced on the unified device-memory ledger
+STORE = PlacementStore(ledger=DEVMEM)
 
 
 # ----- warm-base construction --------------------------------------------------
@@ -210,13 +288,14 @@ STORE = PlacementStore()
 
 def remember(
     session: str, generation: int, model: TensorClusterModel, cfg: GoalConfig | None = None,
-    pressure: torch.Tensor | None = None,
+    pressure: torch.Tensor | None = None, priority: int | None = None, job: str | None = None,
 ) -> WarmStart:
     """Bank a converged result as the session's warm base: the placement
     tensors by reference, and the pressure stack (``pressure``, e.g. a warm
     result's ``warm_pressure``, or one aggregates launch here). The store
-    write is the last step, so a failure leaves the previous base in
-    place."""
+    write is the last step (after the ``placement.bank`` fault seam), so a
+    failure leaves the previous base in place. ``priority`` and ``job``
+    price the base on the ledger (``PlacementStore.put``)."""
     if pressure is None:
         pressure = _pressure_stack(model, cfg)
     warm = WarmStart(
@@ -227,7 +306,9 @@ def remember(
         replica_disk=model.replica_disk,
         pressure=pressure,
     )
-    STORE.put(warm)
+    if FAULTS.armed:
+        FAULTS.hit("placement.bank")
+    STORE.put(warm, priority=priority, job=job)
     return warm
 
 

@@ -153,6 +153,20 @@ class MovementPlan:
             "waveSeconds": [round(float(x), 3) for x in self.wave_seconds],
         }
 
+    def wire_cols(self) -> dict[str, np.ndarray]:
+        """The flat typed arrays of the columnar result path
+        (``planColumnar``): the row-aligned wave/partition columns plus the
+        per-wave profiles, ``pack_arrays``-ready."""
+        return {
+            "wave": self.wave.astype(np.int32),
+            "partition": self.partition.astype(np.int32),
+            "moves": self.moves.astype(np.int32),
+            "moveBytes": self.move_bytes.astype(np.float32),
+            "waveBytes": self.wave_bytes.astype(np.float32),
+            "waveInflowPeak": self.wave_inflow_peak.astype(np.float32),
+            "waveOutflowPeak": self.wave_outflow_peak.astype(np.float32),
+        }
+
 
 # ----- movement-cost tier ----------------------------------------------------
 

@@ -3,8 +3,9 @@
 
 Phases, one JSON line each:
 
-1. device — the card's name, count and ``nvidia-smi`` name/power limit;
-   TF32 off for matrix products and convolutions;
+1. device — the card's name, count and ``nvidia-smi`` name/power limit,
+   and whether ``grpc`` and ``msgpack`` import (with their versions); TF32
+   off for matrix products and convolutions;
 2. build — the hand-written CUDA kernels, compiled with nvcc for sm_90a from
    the sources in this checkout, with their build time;
 3. kernel checks — each kernel against its plain PyTorch version on the
@@ -55,7 +56,28 @@ Phases, one JSON line each:
    250 steps x 8 moves) in chunks of 25, with ``n_temps=4`` and with
    ``n_temps=1``: wall, exchange attempts and accepts from the taps, and the
    result's stack;
-9. result check — a small cluster's stack on the card held against the same
+9. sidecar serve — the port's sidecar (``ccx_torch.sidecar.server``) on
+   ``127.0.0.1:0`` in this process, driven by the port's gRPC client
+   (in process through the byte-identity handlers when ``grpc`` does not
+   import): a full PutSnapshot of B5, a streamed cold Propose at the target
+   rung's options (``rungs.wire_options``), a repeat Propose of the same
+   generation (which must take its input-side stats from the memo), then
+   10 windows of the drift rule, each a metric-only delta PutSnapshot and a
+   warm Propose (``rungs.steady_options``). Every result must verify with
+   zero hard violations, the streamed segments must reassemble to the
+   columns the server packed, every delta must be grafted (none rebuilt)
+   and every Propose must launch the aggregates kernel. The flight recorder
+   is armed for the phase; its summary must name every phase of the cold
+   Propose. Put, round-trip and wire-overhead seconds, segments,
+   ``DEVMEM.stats()`` and the card's memory peak;
+10. fleet — two sessions of B3 with priorities 0 and 5 Propose at once
+   through the fleet scheduler under a registry budget of 1.5 models,
+   so the urgent job's build evicts the other's: both verify, each gets
+   chunk grants while the other is registered, the evicted session's next
+   Propose rebuilds and verifies (and gives one job's time alone), the pair
+   runs again at dispatch width 8 for its seconds, and a job cancelled
+   mid-anneal raises ``JobCancelled`` and leaves the run queue;
+11. result check — a small cluster's stack on the card held against the same
    stack on the CPU, and three batched SA steps on a 64-broker cluster (3
    chains, 4 moves), then three swap-polish iterations, fed the same draws
    on the card and on the CPU: integer state, placement and grouped mirror
@@ -65,7 +87,7 @@ Phases, one JSON line each:
    mask and hot list (pressure stack within rtol 1e-5 / atol 1e-3) on both,
    and the CPU window's diff planned by the device loop on both gives the
    same waves;
-10. after the paths, which so run as they would alone: the same kernel
+12. after the paths, which so run as they would alone: the same kernel
    check on B6 (10k brokers / 1M partitions, whose shared rows need broker
    tiles), then the kernel times at B5, 4000 brokers and B6 (last, since
    torch.profiler's tracing slows every later launch of the process):
@@ -73,23 +95,24 @@ Phases, one JSON line each:
    in ``device_ops``), ``call_ms`` (CUDA events around back-to-back calls),
    ``host_us`` (host enqueue time per call) and the byte bound, for the
    kernel's own choice and for each forced way; at B5 also the plain
-   version's time. The ``kernels`` line gives B5's: its ``ms`` is the call
-   time ``call_ms``, beside ``device_ms`` and ``host_us``;
-11. profile — the device busy share and kernel count, under torch.profiler,
+   version's time, and the same times on the model the sidecar built from
+   the wire. The ``kernels`` line gives B5's: its ``ms`` is the call time
+   ``call_ms``, beside ``device_ms`` and ``host_us``;
+13. profile — the device busy share and kernel count, under torch.profiler,
    of windows on the repaired B5 model: 10 single-move SA steps
    (``p_swap=0``) and 10 polish iterations, as measured before the swap
    engine, then 10 batched SA steps at ``p_swap=0.15`` and 10 swap-polish
    iterations, and one more warm window on the warm path's last snapshot;
    before them, how many times each of these calls (10 steps or
    iterations; one warm window) makes the host wait for the card;
-12. the card's ``nvidia-smi`` line, then the ``kernels`` line, then the
+14. the card's ``nvidia-smi`` line, then the ``kernels`` line, then the
    contract line ``{"ok": true, "device": {...}}`` last.
 
 Any failed check, an unverified result, remaining hard violations, a path
 that never proposed both kinds of swap (target) or launched a kernel of
 the path zero times exits non-zero. Each path (main, lean, warm,
-structural, ladder) sets the launch count to 0 just before it runs and
-reads it just after. Needs one CUDA
+structural, ladder, sidecar serve, fleet) sets the launch count to 0 just
+before it runs and reads it just after. Needs one CUDA
 device; run from the repository root: ``python3 chip_smoke.py``.
 """
 
@@ -129,9 +152,20 @@ WIDER_SPEC = dict(n_brokers=8000, n_racks=40, n_topics=64, n_partitions=16000,
                   n_dead_brokers=3, seed=8)
 #: the warm path: windows to warm up, windows measured, the drift rule's
 #: share of partitions and seed (the bench's ``run_steady``)
-WARM_UP, WARM_WINDOWS, DRIFT, DRIFT_SEED = 2, 20, 0.01, 123
+WARM_UP, WARM_WINDOWS, DRIFT, DRIFT_SEED = 2, 10, 0.01, 123
 #: live brokers marked dead in the structural window
 DEAD_IN_WINDOW = 2
+#: the sidecar's metrics windows (delta PutSnapshot + warm Propose)
+SERVE_WINDOWS = 10
+#: the fleet phase: B3's priorities, the device-memory budget in resident
+#: models, the dispatch widths the concurrent pair runs at, and its budget
+#: (B3's 20 brokers take the sequential SA engine, so the target rung's
+#: 16 x 250 x 8 would take minutes): 8 chains x 50 steps x 2 moves in
+#: chunks of 10, polish 48 iterations in chunks of 16, leader pass 32
+FLEET_PRIORITIES, FLEET_BUDGET_MODELS, FLEET_WIDTHS = (0, 5), 1.5, (1, 8)
+FLEET_ANNEAL = dict(n_chains=8, n_steps=50, moves_per_step=2, chunk_steps=10)
+FLEET_POLISH = dict(max_iters=48, chunk_iters=16)
+FLEET_LEADER_ITERS = 32
 #: the ladder phase: temperature rungs and steps per chunk
 LADDER_TEMPS, LADDER_CHUNK = 4, 25
 #: fixtures of the kernel-time phase: B5, a sparse wide cluster, and B6,
@@ -141,8 +175,18 @@ TIME_FIXTURES = ("B5", "4000-brokers", "B6")
 ROW_WAYS = ("shared", "global")
 
 
+#: every JSON line, also kept whole under smoke_out/ (git ignores it)
+LOG = ROOT / "smoke_out" / "chip_smoke.jsonl"
+T0 = time.monotonic()
+
+
 def emit(obj: dict) -> None:
-    print(json.dumps(obj), flush=True)
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.monotonic() - T0}
+    line = json.dumps(obj)
+    print(line, flush=True)
+    with LOG.open("a") as f:
+        f.write(line + "\n")
 
 
 def fail(msg: str) -> None:
@@ -601,6 +645,344 @@ def ladder_run(repaired, cfg, goal_names, opts, agg_op) -> dict:
             "chunk_steps": LADDER_CHUNK, "launches": {"broker_aggregates": launches}, **runs}
 
 
+def percentile(values, q: float) -> float:
+    v = sorted(values)
+    return v[min(int(round(q * (len(v) - 1))), len(v) - 1)]
+
+
+def check_result(res: dict, what: str) -> None:
+    """A wire result: verified, no hard goal left violated."""
+    if not res["verified"]:
+        fail(f"{what}: verification failed: {res['verificationFailures']}")
+    hard = [g["goal"] for g in res["goalSummary"] if g["hard"] and g["violationsAfter"] > 0]
+    if hard:
+        fail(f"{what}: hard violations remain in {hard}")
+
+
+class InProcessClient:
+    """The client's calls on an ``OptimizerSidecar`` through the
+    byte-identity handlers, for a card machine without ``grpc``."""
+
+    def __init__(self, sidecar) -> None:
+        self.sidecar = sidecar
+
+    def put_snapshot(self, model, session, generation, is_delta=False, base_generation=None,
+                     packed=None):
+        from ccx_torch.sidecar import wire
+
+        return wire.decode_response(self.sidecar.put_snapshot(wire.put_snapshot_request(
+            session, generation, packed, is_delta=is_delta, base_generation=base_generation)))
+
+    def propose(self, session=None, goals=(), columnar=False, warm_start=False,
+                base_generation=None, stream_result=None, timings=None, **options):
+        from ccx_torch.model.snapshot import decode_msgpack
+        from ccx_torch.sidecar import wire
+
+        req = wire.propose_request(goals=goals, options=options, session=session,
+                                   columnar=columnar, warm_start=warm_start,
+                                   base_generation=base_generation,
+                                   stream_result=bool(stream_result and columnar))
+        frames = [wire.decode_frame(wire.pack_frame(f)) for f in self.sidecar.propose(req)]
+        res = frames[-1]["result"]
+        segs = [f["data"] for f in frames if wire.FIELD_RESULT_SEGMENT in f]
+        if segs:
+            res["proposalsColumnar"] = b"".join(segs)
+        if isinstance(res.get("proposalsColumnar"), bytes):
+            res["proposalsColumnar"] = decode_msgpack(res["proposalsColumnar"])
+        if "goalSummaryColumnar" in res:
+            gs = decode_msgpack(res.pop("goalSummaryColumnar"))
+            res["goalSummary"] = [
+                {"goal": g, "hard": bool(h), "violationsAfter": float(va)}
+                for g, h, va in zip(gs["goal"], gs["hard"], gs["violationsAfter"])]
+        if timings is not None:
+            timings.update(frames=len(frames), segments=len(segs))
+        return res
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        pass
+
+
+def sidecar_serve(b5, agg_op, have_grpc: bool) -> tuple[dict, object, dict]:
+    """Phase 9 (module docstring). Returns (its line, the sidecar's resident
+    B5 model, launches per Propose)."""
+    import numpy as np
+    import torch
+    from ccx_torch import rungs
+    from ccx_torch.common.devmem import DEVMEM
+    from ccx_torch.common.tracing import TRACER, summarize
+    from ccx_torch.model.snapshot import delta_encode, model_to_arrays, pack_arrays
+    from ccx_torch.search import incremental as inc
+    from ccx_torch.sidecar import server as sserver
+
+    goal_names, opts, _ = rungs.build_opts("B5", "target")
+    cold_opts = rungs.wire_options(opts)
+    warm_opts = rungs.wire_options(dataclasses.replace(opts, incremental=rungs.steady_options()))
+    recording = LOG.parent / "sidecar_flight.jsonl"
+    recording.parent.mkdir(exist_ok=True)
+    recording.unlink(missing_ok=True)
+    sidecar = sserver.OptimizerSidecar()
+    # the columns the server packs for a columnar result, to hold the
+    # client's reassembly of the streamed segments against
+    packed_cols: list = []
+    real_pack = sserver.pack_arrays
+
+    def recording_pack(d):
+        if "newReplicas" in d:
+            packed_cols.append(d)
+        return real_pack(d)
+
+    sserver.pack_arrays = recording_pack
+    server = None
+    if have_grpc:
+        from ccx_torch.sidecar.client import SidecarClient
+
+        server, port = sserver.make_grpc_server(sidecar, "127.0.0.1:0")
+        server.start()
+        client = SidecarClient(f"127.0.0.1:{port}", retries=0)
+    else:
+        client = InProcessClient(sidecar)
+    session, launches = "chip-smoke-B5-sidecar", {}
+    TRACER.arm(str(recording))
+    try:
+        with client:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            agg_op.LAUNCHES = 0
+            t = time.monotonic()
+            arrays = model_to_arrays(b5)
+            packed = pack_arrays(arrays)
+            pack_s = time.monotonic() - t
+            t = time.monotonic()
+            client.put_snapshot(None, session, 1, packed=packed)
+            put_full_s = time.monotonic() - t
+
+            def propose(name, **kw):
+                before = agg_op.LAUNCHES
+                timings: dict = {}
+                t0 = time.monotonic()
+                res = client.propose(session=session, goals=goal_names, columnar=True,
+                                     timings=timings, **kw)
+                rt = time.monotonic() - t0
+                launches[name] = agg_op.LAUNCHES - before
+                check_result(res, f"sidecar-serve {name}")
+                if launches[name] == 0:
+                    fail(f"sidecar-serve {name} never launched the broker_aggregates kernel")
+                return res, rt, timings
+
+            cold, cold_rt, cold_t = propose("cold", stream_result=True, **cold_opts)
+            got, want = cold["proposalsColumnar"], packed_cols[-1]
+            if sorted(got) != sorted(want) or not all(np.array_equal(got[k], want[k]) for k in want):
+                fail("sidecar-serve: the streamed segments do not reassemble to the packed columns")
+            if cold["numProposals"] != len(want["partition"]):
+                fail("sidecar-serve: numProposals disagrees with the columns")
+            hits = sidecar.stats_memo_hits
+            repeat, repeat_rt, _ = propose("repeat", stream_result=False, **cold_opts)
+            if sidecar.stats_memo_hits != hits + 1:
+                fail("sidecar-serve: the repeat Propose missed the input-stats memo")
+            if repeat["clusterModelStats"]["before"] != cold["clusterModelStats"]["before"]:
+                fail("sidecar-serve: the memo's input stats differ from the cold Propose's")
+            rng = np.random.default_rng(DRIFT_SEED)
+            p_real = int(b5.partition_valid.sum())
+            n_drift = max(int(p_real * DRIFT), 1)
+            loads = {f: arrays[f] for f in ("leader_load", "follower_load")}
+            windows = []
+            for gen in range(1, SERVE_WINDOWS + 1):
+                new = rungs.drift_metrics(loads, rng, p_real, n_drift)
+                t = time.monotonic()
+                client.put_snapshot(None, session, gen + 1, is_delta=True, base_generation=gen,
+                                    packed=pack_arrays(delta_encode(loads, new)))
+                put_s = time.monotonic() - t
+                loads = new
+                res, rt, tm = propose(f"warm-{gen}", warm_start=True, base_generation=gen,
+                                      stream_result=True, **warm_opts)
+                info = res.get("incremental") or {}
+                if not info.get("warmStart"):
+                    fail(f"sidecar-serve window {gen} was not warm-started: {info}")
+                windows.append({"window": gen, "put_delta_seconds": put_s, "round_trip_seconds": rt,
+                                "wall_seconds": res["wallSeconds"], "wire_seconds": res["wireSeconds"],
+                                "diff_rows": res["numProposals"], "segments": tm["segments"],
+                                "segment_bytes": res["proposalsColumnarBytes"],
+                                "touched_brokers": info.get("touchedBrokers"),
+                                "reverted": info.get("reverted"), "launches": launches[f"warm-{gen}"]})
+            path_launches = agg_op.LAUNCHES
+    finally:
+        TRACER.disarm()
+        sserver.pack_arrays = real_pack
+        if server is not None:
+            server.stop(0)
+    reg = sidecar.registry.stats()
+    if reg["deltaGrafts"] != SERVE_WINDOWS or reg["misses"] != 1 or reg["graftFailures"]:
+        fail(f"sidecar-serve: a metric delta was not grafted: {reg}")
+    summary = summarize(str(recording))
+    unnamed = [p for p in cold["phaseSeconds"] if f"optimize/{p}" not in summary["spanWalls"]]
+    if unnamed or summary["openSpans"]:
+        fail(f"sidecar-serve: the recording misses phases {unnamed} "
+             f"or leaves spans open {summary['openSpans']}")
+    rts = [w["round_trip_seconds"] for w in windows]
+    over = [w["round_trip_seconds"] - w["wall_seconds"] for w in windows]
+    line = {
+        "phase": "sidecar-serve", "config": "B5", "rung": "target", "transport":
+        "grpc" if have_grpc else "in-process", "packed_bytes": len(packed),
+        "pack_seconds": pack_s, "put_full_seconds": put_full_s,
+        "put_delta_seconds_p50": float(np.median([w["put_delta_seconds"] for w in windows])),
+        "cold": {"round_trip_seconds": cold_rt, "wall_seconds": cold["wallSeconds"],
+                 "overhead_seconds": cold_rt - cold["wallSeconds"],
+                 "phase_seconds": cold["phaseSeconds"], "wire_seconds": cold["wireSeconds"],
+                 "proposals": cold["numProposals"], "segments": cold_t["segments"],
+                 "segment_bytes": cold["proposalsColumnarBytes"], "frames": cold_t["frames"],
+                 "launches": launches["cold"]},
+        "repeat": {"round_trip_seconds": repeat_rt, "wall_seconds": repeat["wallSeconds"],
+                   "stats_memo_hit": True, "launches": launches["repeat"]},
+        "warm_round_trip_p50_seconds": float(np.median(rts)),
+        "warm_round_trip_p99_seconds": percentile(rts, 0.99),
+        "warm_overhead_p50_seconds": float(np.median(over)),
+        "warm_overhead_p99_seconds": percentile(over, 0.99),
+        "windows": windows, "registry": reg, "devmem": DEVMEM.stats(),
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+        "flight_recorder": {"records": summary["records"], "spans": len(summary["spanWalls"])},
+        "launches": {"broker_aggregates": path_launches},
+    }
+    model = sidecar.registry.model(session)
+    inc.STORE.drop(session)
+    return line, model, launches
+
+
+def fleet_phase(dev, agg_op) -> dict:
+    """Phase 10 (module docstring)."""
+    import threading
+
+    from ccx_torch import rungs
+    from ccx_torch.common import devmem
+    from ccx_torch.model.fixtures import bench_spec, random_cluster
+    from ccx_torch.model.snapshot import model_to_arrays, pack_arrays
+    from ccx_torch.search import incremental as inc
+    from ccx_torch.search import scheduler
+    from ccx_torch.search.scheduler import FLEET, JobCancelled
+    from ccx_torch.sidecar import wire
+    from ccx_torch.sidecar.server import OptimizerSidecar, model_device_bytes
+
+    goal_names, opts, _ = rungs.build_opts("B3", "target")
+    opts = dataclasses.replace(
+        opts, anneal=dataclasses.replace(opts.anneal, **FLEET_ANNEAL),
+        polish=dataclasses.replace(opts.polish, **FLEET_POLISH),
+        leader_pass_max_iters=FLEET_LEADER_ITERS)
+    b3 = random_cluster(bench_spec("B3"), device=dev)
+    arrays = model_to_arrays(b3)
+    one = model_device_bytes(b3)
+    # the registry's own ledger: the budget binds its models only, and the
+    # earlier phases' entries on the process-wide ledger stay
+    sidecar = OptimizerSidecar(snapshot_hbm_budget_bytes=int(FLEET_BUDGET_MODELS * one))
+    jobs = {p: f"fleet-p{p}" for p in FLEET_PRIORITIES}
+    for name in jobs.values():
+        sidecar.put_snapshot(wire.put_snapshot_request(name, 1, pack_arrays(arrays)))
+
+    def request(name, prio, **over):
+        return wire.propose_request(goal_names, rungs.wire_options(opts) | over, session=name,
+                                    cluster_id=name, priority=prio)
+
+    def run(name, prio, box):
+        box[name] = [wire.decode_frame(wire.pack_frame(f))
+                     for f in sidecar.propose(request(name, prio))][-1]["result"]
+
+    def active():
+        return {j["job"]: j["chunks"] for j in FLEET.stats()["activeJobs"]}
+
+    def concurrent_pair(width: int) -> dict:
+        """Both jobs at once, the urgent one started once the other is
+        registered: seconds, results and the chunk counts of each job at
+        the first and last moment both were registered."""
+        scheduler.configure(dispatch_width=width)
+        results: dict = {}
+        samples: list = []
+        done = threading.Event()
+
+        def monitor():
+            while not done.is_set():
+                a = active()
+                if all(n in a for n in jobs.values()):
+                    samples.append(a)
+                time.sleep(0.01)
+
+        watcher = threading.Thread(target=monitor)
+        low, high = (threading.Thread(target=run, args=(jobs[p], p, results))
+                     for p in FLEET_PRIORITIES)
+        t = time.monotonic()
+        watcher.start()
+        try:
+            low.start()
+            deadline = time.monotonic() + 120
+            while jobs[0] not in active() and low.is_alive() and time.monotonic() < deadline:
+                time.sleep(0.002)
+            high.start()
+            low.join(timeout=300)
+            high.join(timeout=300)
+        finally:
+            done.set()
+            watcher.join(timeout=30)
+            scheduler.configure(dispatch_width=0)
+        if low.is_alive() or high.is_alive() or len(results) != 2:
+            fail(f"fleet: a Propose did not finish at dispatch width {width}")
+        for name, res in results.items():
+            check_result(res, f"fleet {name} (width {width})")
+        grants = {n: (samples[0][n], samples[-1][n]) for n in jobs.values()} if samples else {}
+        return {"seconds": time.monotonic() - t, "grants_during_overlap": grants,
+                "overlap_samples": len(samples),
+                "walls": {n: r["wallSeconds"] for n, r in results.items()}}
+
+    agg_op.LAUNCHES = 0
+    pairs = {scheduler.DEFAULT_DISPATCH_WIDTH: concurrent_pair(scheduler.DEFAULT_DISPATCH_WIDTH)}
+    grants = pairs[scheduler.DEFAULT_DISPATCH_WIDTH]["grants_during_overlap"]
+    if not grants or any(b <= a for a, b in grants.values()):
+        fail(f"fleet: the grants did not interleave: {pairs}")
+    reg = sidecar.registry.stats()
+    if reg["evictions"] < 1:
+        fail(f"fleet: the budget forced no eviction: {reg}")
+    misses = reg["misses"]
+    box: dict = {}
+    t = time.monotonic()
+    run(jobs[0], 0, box)
+    alone_s = time.monotonic() - t
+    check_result(box[jobs[0]], "fleet rebuild")
+    if sidecar.registry.stats()["misses"] != misses + 1:
+        fail("fleet: the evicted session's next Propose did not rebuild")
+    for width in FLEET_WIDTHS:
+        if width not in pairs:
+            pairs[width] = concurrent_pair(width)
+    # a job cancelled mid-anneal
+    cancel = threading.Event()
+    gen = sidecar.propose(request(jobs[0], 0, steps=100 * opts.anneal.n_steps), cancel=cancel)
+    cancelled = False
+    try:
+        for frame in gen:
+            if frame.get("progress") == "anneal" and not cancel.is_set():
+                time.sleep(0.5)
+                cancel.set()
+                FLEET.kick()
+    except JobCancelled:
+        cancelled = True
+    if not cancelled:
+        fail("fleet: the cancelled job did not raise JobCancelled")
+    if jobs[0] in active():
+        fail("fleet: the cancelled job still holds its slot")
+    line = {
+        "phase": "fleet", "config": "B3", "rung": "target", "anneal": FLEET_ANNEAL,
+        "polish": FLEET_POLISH, "leader_iters": FLEET_LEADER_ITERS,
+        "model_bytes": one, "budget_bytes": sidecar.registry.budget_bytes(),
+        "concurrent_by_dispatch_width": pairs, "alone_seconds": alone_s,
+        "registry": sidecar.registry.stats(), "devmem": devmem.DEVMEM.stats(),
+        "rebuild_verified": True, "cancelled": True,
+        "launches": {"broker_aggregates": agg_op.LAUNCHES},
+    }
+    for name in jobs.values():
+        inc.STORE.drop(name)
+    if line["launches"]["broker_aggregates"] == 0:
+        fail("fleet never launched the broker_aggregates kernel")
+    return line
+
+
 def exchange_on_card(dev) -> dict:
     """One exchange sweep on the card and on the CPU from the same cost
     vectors, temperatures and uniforms: the same permutation and counts."""
@@ -707,6 +1089,8 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
+    LOG.parent.mkdir(exist_ok=True)
+    LOG.write_text("")
     sys.path.insert(0, str(ROOT))
     from ccx_torch.goals.base import GoalConfig
     from ccx_torch.goals.stack import DEFAULT_GOAL_ORDER, evaluate_stack
@@ -730,8 +1114,18 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+    packages = {}
+    for name in ("grpc", "msgpack"):
+        try:
+            mod = __import__(name)
+        except ImportError:
+            packages[name] = None
+        else:
+            version = getattr(mod, "__version__", None) or getattr(mod, "version", None)
+            packages[name] = ".".join(map(str, version)) if isinstance(version, tuple) else version
     emit({"phase": "device", "kind": kind, "count": torch.cuda.device_count(),
-          "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda})
+          "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
+          "packages": packages})
 
     # --- 2. build ------------------------------------------------------------
     t = time.monotonic()
@@ -868,7 +1262,15 @@ def main() -> None:
     launches["ladder"] = line["launches"]["broker_aggregates"]
     emit(line)
 
-    # --- 9. result check: the card against the CPU ----------------------------
+    # --- 9, 10. the sidecar serving path and the fleet --------------------------
+    line, served, per_propose = sidecar_serve(b5, agg_op, packages["grpc"] is not None)
+    launches["sidecar-serve"] = line["launches"]["broker_aggregates"]
+    emit(line)
+    line = fleet_phase(dev, agg_op)
+    launches["fleet"] = line["launches"]["broker_aggregates"]
+    emit(line)
+
+    # --- 11. result check: the card against the CPU ---------------------------
     small = random_cluster(bench_spec("B3"), device=dev)
     host = model_from_arrays(model_arrays(small), small.num_topics, small.num_racks, "cpu")
     s_dev = evaluate_stack(small, cfg, DEFAULT_GOAL_ORDER)
@@ -881,7 +1283,7 @@ def main() -> None:
           "cpu_equal": card_against_cpu(dev), "exchange_equal": exchange_on_card(dev),
           "warm_window_equal": warm_window_on_card(dev)})
 
-    # --- 10. B6's check and the kernel times, after the paths; the times
+    # --- 12. B6's check and the kernel times, after the paths; the times
     # last of the two (once torch.profiler has traced the card, every later
     # launch in the process pays for the tracing) ------------------------------
     t = time.monotonic()
@@ -903,8 +1305,14 @@ def main() -> None:
             line.update(plain_ms=plain_ms, library_ms=None)
         emit(line)
     del wide, b6
+    # the model the sidecar built from the wire (B5's arrays, packed and
+    # decoded): the kernel as the serving path launches it
+    serve_times = time_kernel(agg_op, served)
+    emit({"phase": "kernel-time", "kernel": "broker_aggregates", "model": "B5 via the sidecar",
+          "plan": agg_op.plan(served), **serve_times})
+    del served
 
-    # --- 11. profile -----------------------------------------------------------
+    # --- 13. profile -----------------------------------------------------------
     k = PROFILE_STEPS
     single = dataclasses.replace(opts.anneal, n_steps=k, p_swap=0.0)
     batched = dataclasses.replace(opts.anneal, n_steps=k)
@@ -913,6 +1321,8 @@ def main() -> None:
     for warm in (single, batched):
         anneal(repaired, cfg, goal_names, dataclasses.replace(warm, n_steps=1))
     warm_opts = dataclasses.replace(opts, incremental=steady_options(), plan_enabled=True)
+    if STORE.get(session) is None:
+        fail("profile: the warm path's base is gone; its window would run cold")
     syncs = {
         "anneal_batched": host_syncs(lambda: anneal(repaired, cfg, goal_names, batched)),
         "polish": host_syncs(lambda: greedy_optimize(repaired, cfg, goal_names, polish)),
@@ -934,14 +1344,17 @@ def main() -> None:
               lambda: optimize(snap, cfg, goal_names, warm_opts,
                                warm_start=STORE.get(session)))}})
 
-    # --- 12. summary lines -----------------------------------------------------
+    # --- 14. summary lines -----------------------------------------------------
     print(smi, flush=True)
     emit({"kernels": [{
         "name": "broker_aggregates", "route": "cuda",
         "source": "ccx_torch/csrc/broker_aggregates.cu",
         "replaces": "ccx/ops/mxu_aggregates.py:210",
         "launches": launches["target"], "launches_by_path": launches,
-        "launches_per_warm_window": warm_per_window, "max_abs_err": max_err,
+        "launches_per_warm_window": warm_per_window,
+        "launches_per_sidecar_propose": per_propose,
+        "sidecar_path": {k: serve_times[k] for k in ("device_ms", "call_ms", "host_us")},
+        "max_abs_err": max_err,
         "ms": times["call_ms"], "device_ms": times["device_ms"],
         "call_ms": times["call_ms"], "host_us": times["host_us"],
         "plain_ms": plain_ms, "bound_ms": times["bound_ms"],

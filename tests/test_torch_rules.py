@@ -46,6 +46,24 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
 
 
+def test_serving_modules_load_neither_jax_nor_the_jax_package_nor_grpc():
+    """Importing the sidecar's server, the fleet scheduler and the tracer
+    in a fresh interpreter loads no ``jax`` and no ``ccx.*`` module, and
+    the server imports ``grpc`` only when a server is made."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys\n"
+        "import ccx_torch.sidecar.server, ccx_torch.search.scheduler, ccx_torch.common.tracing\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'ccx' or m.startswith('ccx.'))\n"
+        "assert not bad, bad\n"
+        "assert 'grpc' not in sys.modules, 'grpc imported at import time'\n"
+    )
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT, timeout=120)
+
+
 def test_import_scan_sees_forbidden_imports(tmp_path):
     src = tmp_path / "m.py"
     src.write_text("import jax.numpy as jnp\nfrom ccx.goals import base\nimport ccx_torch\n")
