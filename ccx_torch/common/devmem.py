@@ -25,24 +25,27 @@ price what they keep on the card on this one ledger, under one budget:
   counted (``overBudgetAdmissions``) — one job must always be able to run.
 
 The budget, with no override (constructor, :func:`configure`,
-``CCX_DEVMEM_BUDGET_MB``, ``CCX_FLEET_HBM_MB``), follows the JAX package's
-rule on the CUDA device: half of (device capacity − the program
-watermark), floor 64 MB. Capacity is ``torch.cuda.mem_get_info``'s total,
-the watermark ``torch.cuda.max_memory_reserved`` — the most the caching
-allocator has held for the optimizer's own tensors. On a host without a
-CUDA device the entries live in host memory, which the ledger does not
-bound: the budget is then unlimited unless one is set.
+``CCX_DEVMEM_BUDGET_MB``, ``CCX_FLEET_HBM_MB``), is the cost model's one
+derivation (``ccx_torch.common.costmodel.fleet_snapshot_budget_bytes``),
+the JAX package's rule on the CUDA device: half of (device capacity − the
+program watermark), floor 64 MB. Capacity is ``torch.cuda.mem_get_info``'s
+total, the watermark ``torch.cuda.max_memory_reserved`` — the most the
+caching allocator has held for the optimizer's own tensors. On a host
+without a CUDA device the entries live in host memory, which the ledger
+does not bound: the budget is then unlimited unless one is set.
 
-Import-light on purpose (stdlib only at module load): the scheduler and
-the incremental store import this at their own import time.
+Import-light on purpose (stdlib and ``costmodel``, itself stdlib-only at
+load): the scheduler and the incremental store import this at their own
+import time.
 """
 
 from __future__ import annotations
 
 import logging
 import os
-import sys
 import threading
+
+from ccx_torch.common import costmodel
 
 #: entry classes whose bytes the ledger may reclaim. ``program`` is
 #: accounted but pinned — the optimizer's working set belongs to the
@@ -51,36 +54,16 @@ EVICTABLE_CLASSES = frozenset({"snapshot", "warmBase"})
 
 #: budget override in MB (0/unset = fall through to the derivation)
 ENV_BUDGET_MB = "CCX_DEVMEM_BUDGET_MB"
-#: the fleet snapshot budget override the JAX package's derivation reads
-ENV_FLEET_HBM_MB = "CCX_FLEET_HBM_MB"
+#: the fleet snapshot budget override the derivation reads
+ENV_FLEET_HBM_MB = costmodel.ENV_FLEET_HBM_MB
 #: the derived budget's floor
-MIN_BUDGET_BYTES = 64_000_000
+MIN_BUDGET_BYTES = costmodel.MIN_BUDGET_BYTES
 
 
-def derived_budget_bytes() -> int:
-    """The budget with no override: ``CCX_FLEET_HBM_MB`` when set, else
-    half of (CUDA device capacity − ``max_memory_reserved``), floor 64 MB;
-    unlimited with no CUDA device (module docstring)."""
-    env = os.environ.get(ENV_FLEET_HBM_MB)
-    if env and float(env) > 0:
-        return int(float(env) * 1e6)
-    import torch
-
-    if not torch.cuda.is_available():
-        return sys.maxsize
-    _, capacity = torch.cuda.mem_get_info()
-    budget = (float(capacity) - program_watermark_bytes()) / 2.0
-    return int(max(budget, MIN_BUDGET_BYTES))
-
-
-def program_watermark_bytes() -> int:
-    """The optimizer's peak device working set: the most the caching
-    allocator has reserved on the current CUDA device (0 without one)."""
-    import torch
-
-    if not torch.cuda.is_available() or not torch.cuda.is_initialized():
-        return 0
-    return int(torch.cuda.max_memory_reserved())
+#: the budget with no override, and the working-set watermark it
+#: subtracts: the cost model's one derivation
+derived_budget_bytes = costmodel.fleet_snapshot_budget_bytes
+program_watermark_bytes = costmodel.hbm_watermark_bytes
 
 
 class Entry:

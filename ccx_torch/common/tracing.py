@@ -29,10 +29,13 @@ event or heartbeat arrives for that long while spans are active, it dumps
 all-thread stacks and the active span stacks into the recorder (and
 stderr) — one dump per stall episode, re-armed by the next heartbeat.
 
-The JAX package's spans also carry compile counters and cost-model
-projections. Their sources (``costmodel``, ``compilestats``) are not
-ported yet (ROADMAP), so ``_compile_snapshot`` returns None and no span
-carries a compile or cost block.
+Every span also carries the kernel builds that ran inside it (a
+``compile`` block, ``ccx_torch.common.compilestats`` deltas) and the cost
+rollup of the instrumented calls it made (a ``costModel`` block,
+``ccx_torch.common.costmodel``: projected device seconds on its device and
+the captured allocator peak), computed when the span is rendered, so a
+cold run's spans pick up the records its ``cost-capture`` phase banks
+after they closed.
 
 Overhead contract: spans and heartbeats are host-side only — no tensor is
 touched unless ``sync`` is on — and unarmed, a heartbeat is two attribute
@@ -49,6 +52,8 @@ import sys
 import threading
 import time
 import traceback
+
+from ccx_torch.common import compilestats, costmodel
 
 #: recorder schema version, stamped on every ``arm`` header record
 RECORDER_VERSION = 1
@@ -77,7 +82,7 @@ class Span:
 
     __slots__ = (
         "name", "kind", "path", "attrs", "children", "t_wall",
-        "t0", "wall_s", "compile0", "compile", "device", "done",
+        "t0", "wall_s", "compile0", "compile", "cost0", "cost_delta", "device", "done",
     )
 
     def __init__(self, name: str, kind: str | None, path: str,
@@ -92,6 +97,8 @@ class Span:
         self.wall_s: float | None = None
         self.compile0 = compile0
         self.compile: dict | None = None
+        self.cost0 = costmodel.exec_snapshot()
+        self.cost_delta: dict | None = None
         #: the device a ``sync`` close drains (None: host-only span)
         self.device = device
         self.done = False
@@ -106,20 +113,36 @@ class Span:
             out["attrs"] = dict(self.attrs)
         if self.compile:
             out["compile"] = self.compile
+        cost = _cost_compact(self.cost_delta, self.device)
+        if cost:
+            # the projected device seconds and allocator peak of the
+            # instrumented calls this span made
+            out["costModel"] = cost
         if self.children:
             out["children"] = [c.to_json() for c in self.children]
         return out
 
 
-def _compile_snapshot() -> dict | None:
-    """Live compile counters. None: the port has no compile-counter source
-    until ``compilestats`` is ported (ROADMAP), so no span carries a
-    compile block."""
-    return None
+def _compile_snapshot() -> dict:
+    """Live kernel-build counters (``compilestats``)."""
+    return compilestats.snapshot()
 
 
 def _compile_delta(before: dict | None) -> dict | None:
-    return None
+    """The builds since ``before``; None when nothing was built."""
+    if before is None:
+        return None
+    d = compilestats.delta(before, compilestats.snapshot())
+    return d if any(d.values()) else None
+
+
+def _cost_exec_delta(before: dict | None) -> dict | None:
+    return None if before is None else costmodel.exec_delta(before) or None
+
+
+def _cost_compact(delta: dict | None, device=None) -> dict | None:
+    """A span's cost rollup, rendered lazily (see the module docstring)."""
+    return costmodel.projection_compact(delta, device) if delta else None
 
 
 class Tracer:
@@ -290,6 +313,7 @@ class Tracer:
     def _close(self, span: Span) -> None:
         span.wall_s = time.monotonic() - span.t0
         span.compile = _compile_delta(span.compile0)
+        span.cost_delta = _cost_exec_delta(span.cost0)
         span.done = True
         st = getattr(self._tl, "stack", None)
         root_closed = False
@@ -304,10 +328,14 @@ class Tracer:
             if st and st[-1] is span:
                 st.pop()
             root_closed = not st
+        cost = _cost_compact(span.cost_delta, span.device)
         self._record({
             "ev": "end", "span": span.path,
             "wall_s": round(span.wall_s, 4),
             **({"compile": span.compile} if span.compile else {}),
+            # a later stall in the same phase reads its expected cost off
+            # this record (summarize() joins them)
+            **({"cost": cost} if cost else {}),
         })
         if root_closed:
             # root closed: bank the tree and deregister this thread's
@@ -613,6 +641,11 @@ class Tracer:
             # of every in-flight proposal, readable DURING a wedge
             "convergence": self.convergence_timeline(),
         }
+        out["compile"] = compilestats.snapshot()
+        out["compileAttribution"] = compilestats.attribution()
+        # the cost observatory's ledger: captured records, call counts and
+        # the live card's roofline spec
+        out["costModel"] = costmodel.summary()
         if threads:
             out["threads"] = self._thread_stacks()
         return out

@@ -13,6 +13,7 @@ import dataclasses
 
 import torch
 
+from ccx_torch.common import costmodel
 from ccx_torch.goals import kernels  # noqa: F401  (populates the registry)
 from ccx_torch.goals.base import GOAL_REGISTRY, GoalConfig
 from ccx_torch.model.aggregates import BrokerAggregates, broker_aggregates
@@ -95,6 +96,7 @@ class StackResult:
         return {n: (v[i], c[i]) for i, n in enumerate(self.names)}
 
 
+@costmodel.instrument("stack-eval")
 def evaluate_stack(
     m: TensorClusterModel,
     cfg: GoalConfig,

@@ -13,6 +13,7 @@ import dataclasses
 
 import torch
 
+from ccx_torch.common import costmodel
 from ccx_torch.model.tensor_model import TensorClusterModel
 
 
@@ -42,9 +43,12 @@ BROKER_FIELDS: tuple[str, ...] = (
 )
 
 
+@costmodel.instrument("broker-aggregates", work=costmodel.aggregates_work_of)
 def broker_aggregates(m: TensorClusterModel) -> BrokerAggregates:
     """Launches the CUDA kernel for a CUDA model (raising if it cannot),
-    the plain version for a CPU model (``ccx_torch.ops.broker_aggregates``)."""
+    the plain version for a CPU model (``ccx_torch.ops.broker_aggregates``).
+    Counted on the cost ledger as ``broker-aggregates``, with the pass's
+    bytes and operations as its work."""
     from ccx_torch.ops import broker_aggregates as op
 
     if m.device.type == "cuda":

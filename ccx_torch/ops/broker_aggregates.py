@@ -26,12 +26,14 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 import weakref
 from pathlib import Path
 from typing import NamedTuple
 
 import torch
 
+from ccx_torch.common import compilestats
 from ccx_torch.common.resources import NUM_RESOURCES, Resource
 from ccx_torch.model.aggregates import BrokerAggregates
 from ccx_torch.model.tensor_model import TensorClusterModel
@@ -76,18 +78,22 @@ def _nvcc() -> str:
 def build(verbose: bool = False) -> str:
     """Compile the kernel into ``ccx_torch/_build/`` unless the library of
     these sources and flags is there. Returns nvcc's output (``-Xptxas -v``
-    with ``verbose``); raises with it when the build fails."""
+    with ``verbose``); raises with it when the build fails. Each call counts
+    on ``ccx_torch.common.compilestats``: a cache hit, or a build."""
     library = _library_path()
     if library.exists():
+        compilestats.note_cache_hit()
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = library.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
            "-o", str(tmp), str(SOURCE)]
+    t0 = time.monotonic()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, library)
+    compilestats.note_build(time.monotonic() - t0)
     return proc.stdout + proc.stderr
 
 

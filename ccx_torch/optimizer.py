@@ -32,12 +32,22 @@ call as a fleet job (``ccx_torch.search.scheduler.FLEET``): its chunk
 dispatches interleave with other jobs' at chunk boundaries, and a set
 ``cancel`` event ends it with ``JobCancelled`` at the next one.
 
+With ``overlap_repair`` (and chunked SA with more steps than one chunk),
+hard repair runs in a background thread while the first SA chunk anneals
+the unrepaired input; the lexicographically better of the two continues.
+
+Every result, cold or warm, carries a ``cost_model`` block
+(``ccx_torch.common.costmodel``): the run's instrumented calls per program
+and per phase, projected onto the card's roofline. With capture armed a
+cold run also measures the first call of each new shape and reads the
+measurements in a ``cost-capture`` phase; a warm run never captures. Each
+phase runs under a named profiler range (``ccx_torch.common.profiling``).
+
 It runs on the model's device (build the model on CUDA, the default, or pass
 ``device="cpu"`` to the model builder). ``OptimizeOptions`` carries the JAX
-package's defaults for every field it has. The JAX package's repair
-backends and overlap, its device mesh and its cost model are not part of
-this pipeline; ``OptimizerResult.to_json`` leaves out their keys
-(``costModel``, ``mesh``).
+package's defaults for every field it has. The JAX package's device mesh is
+not part of this pipeline; ``OptimizerResult.to_json`` leaves out its key
+(``mesh``).
 """
 
 from __future__ import annotations
@@ -50,6 +60,8 @@ import time
 import numpy as np
 import torch
 
+from ccx_torch.common import costmodel
+from ccx_torch.common.profiling import annotate
 from ccx_torch.common.tracing import TRACER
 from ccx_torch.goals.base import GOAL_REGISTRY, GoalConfig
 from ccx_torch.goals.stack import DEFAULT_GOAL_ORDER, StackResult, evaluate_stack
@@ -86,6 +98,16 @@ class OptimizeOptions:
     #: verification holds every hard goal at zero violations (off: no hard
     #: goal's violations may increase)
     require_hard_zero: bool = True
+    #: hard repair's loop driver, by the JAX package's names (``"device"``
+    #: or ``"host"``; the port's one driver serves both)
+    repair_backend: str = "device"
+    #: overlap hard repair with the first SA chunk: repair runs in a
+    #: background thread while ``anneal.chunk_steps`` steps anneal the
+    #: unrepaired input; the lexicographically better state continues with
+    #: the remaining steps. Needs chunked SA with more steps than one chunk
+    #: and inter-broker moves; skipped otherwise. On one card both threads
+    #: launch onto one stream, so it buys no wall time there
+    overlap_repair: bool = False
     #: verification checks that no replica is left on a dead broker
     #: (never for a stack that moves replicas within brokers only)
     check_evacuation: bool = True
@@ -167,6 +189,8 @@ class OptimizerResult:
     input_model: TensorClusterModel | None = None
     #: the completed span tree of this ``optimize`` call
     span_tree: dict | None = None
+    #: the cost ledger's rollup of this call (``costmodel.cost_model_json``)
+    cost_model: dict | None = None
 
     @property
     def stats_before(self) -> ClusterModelStats | None:
@@ -216,7 +240,7 @@ class OptimizerResult:
         include_goal_summary: bool = True,
     ) -> dict:
         """The result block of the sidecar's wire, keyed as the JAX
-        package's (``costModel`` and ``mesh`` are never present).
+        package's (``mesh`` is never present).
         ``include_stats=False`` omits the ClusterModelStats blocks (each an
         aggregates launch and a host copy; the sidecar omits them from warm
         results); ``include_proposals=False`` omits the per-row dicts
@@ -254,6 +278,7 @@ class OptimizerResult:
             ("spanTree", self.span_tree),
             ("incremental", self.incremental),
             ("convergence", self.convergence),
+            ("costModel", self.cost_model),
         ):
             if val:
                 out[key] = val
@@ -329,8 +354,9 @@ class _Run:
     """The bookkeeping one pipeline run shares between its stages: phase
     seconds, the per-move-kind counters and the convergence segments by
     phase. Each phase calls ``progress_cb(name)`` as it starts, runs under
-    a tracing span, and ends with a device synchronize, so its span wall
-    (the ``phase_seconds`` entry) covers its device work."""
+    a tracing span and a named profiler range, and ends with a device
+    synchronize, so its span wall (the ``phase_seconds`` entry) covers its
+    device work."""
 
     def __init__(self, device: torch.device, progress_cb=None) -> None:
         self.device = device
@@ -353,7 +379,8 @@ class _Run:
             self.progress_cb(name)
         s = TRACER.start(name, kind="phase", device=self.device, **attrs)
         try:
-            yield
+            with annotate(f"ccx:{name}", self.device):
+                yield
             _sync(self.device)
         finally:
             TRACER.end(s)
@@ -399,6 +426,7 @@ def optimize(
         cluster_id, priority = job if isinstance(job, tuple) else (job, 0)
         with FLEET.job(str(cluster_id), int(priority), cancel_event=cancel):
             return optimize(m, cfg, goal_names, opts, warm_start, progress_cb)
+    cost0 = costmodel.exec_snapshot()
     warm = warm_start if (warm_start is not None and opts.incremental.armed) else None
     root = TRACER.start(
         "optimize", kind="op", P=int(m.P), B=int(m.B), goals=len(goal_names),
@@ -420,7 +448,11 @@ def optimize(
         # the root closes on every exit path: a leaked root would nest
         # every later call on this thread under a dead tree
         TRACER.end(root)
-    return dataclasses.replace(res, span_tree=root.to_json())
+    # rendered after the cold run's cost-capture phase banked its records,
+    # so the phase spans price them too
+    tree = root.to_json()
+    cost_model = costmodel.cost_model_json(costmodel.exec_delta(cost0), tree, m.device)
+    return dataclasses.replace(res, span_tree=tree, cost_model=cost_model)
 
 
 def _optimize(
@@ -430,7 +462,78 @@ def _optimize(
     opts: OptimizeOptions,
     progress_cb=None,
 ) -> OptimizerResult:
-    """The cold pipeline (module docstring)."""
+    """The cold pipeline (module docstring), the one place the cost ledger
+    captures."""
+    with costmodel.cold_window():
+        return _optimize_cold(m, cfg, goal_names, opts, progress_cb)
+
+
+class _BackgroundRepair:
+    """``hard_repair`` of ``m`` in a background thread (``overlap_repair``),
+    started at construction."""
+
+    def __init__(self, m, cfg, goal_names, backend: str) -> None:
+        self._box: dict = {}
+        dev = m.device
+
+        def repair() -> None:
+            t_bg = time.monotonic()
+            try:
+                # the current CUDA device is per thread
+                with (torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()):
+                    with costmodel.cold_window():
+                        self._box["res"] = hard_repair(m, cfg, goal_names, backend=backend)
+                        _sync(dev)
+            except BaseException as e:  # noqa: BLE001 — re-raised by the joining thread
+                self._box["err"] = e
+            self._box["wall"] = time.monotonic() - t_bg
+
+        self._thread = threading.Thread(target=repair, name="ccx-overlap-repair", daemon=True)
+        self._thread.start()
+
+    def join(self) -> None:
+        self._thread.join()
+
+    def result(self, run: _Run) -> tuple[TensorClusterModel, int]:
+        """Join, record ``repair-join`` (the wait) and ``repair-concurrent``
+        (the thread's wall), and return (repaired model, moves); the
+        thread's exception is raised here with its own traceback."""
+        t_join = time.monotonic()
+        self.join()
+        run.phases["repair-join"] = time.monotonic() - t_join
+        run.phases["repair-concurrent"] = self._box.get("wall", 0.0)
+        if "err" in self._box:
+            raise self._box["err"]
+        return self._box["res"]
+
+
+def _anneal_overlapped(m, cfg, goal_names, anneal_opts: AnnealOptions, run: _Run,
+                       bg: _BackgroundRepair):
+    """The first SA chunk anneals the unrepaired ``m`` while ``bg`` repairs
+    it; the lexicographically better of the two anneals the remaining steps
+    (seed + 1). Returns (the SA result, the repair moves it carries)."""
+    chunk = anneal_opts.chunk_steps
+    # no hot list is passed: anneal() lists the unrepaired input's offenders
+    sa1 = anneal(m, cfg, goal_names, dataclasses.replace(anneal_opts, n_steps=chunk))
+    run.tally(sa1, "anneal")
+    repaired, n_repair = bg.result(run)
+    if _lex_better(sa1.stack_after, evaluate_stack(repaired, cfg, goal_names)):
+        # the repaired state is dropped, so its moves are not in the result
+        start, n_sa1, n_repair = sa1.model, sa1.n_accepted, 0
+    else:
+        start, n_sa1 = repaired, 0
+    sa = anneal(start, cfg, goal_names, dataclasses.replace(
+        anneal_opts, n_steps=anneal_opts.n_steps - chunk, seed=anneal_opts.seed + 1))
+    return dataclasses.replace(sa, n_accepted=sa.n_accepted + n_sa1), n_repair
+
+
+def _optimize_cold(
+    m: TensorClusterModel,
+    cfg: GoalConfig,
+    goal_names: tuple[str, ...],
+    opts: OptimizeOptions,
+    progress_cb=None,
+) -> OptimizerResult:
     from ccx_torch.common.faults import FAULTS
 
     # chaos seam: the cold pipeline's entry stands in for a failed build
@@ -442,14 +545,31 @@ def _optimize(
     phase, tally = run.phase, run.tally
 
     inter = allows_inter_broker(goal_names)
+    backend = opts.repair_backend
+    overlap = (
+        opts.overlap_repair and inter and opts.anneal.chunk_steps > 0
+        and opts.anneal.n_steps > opts.anneal.chunk_steps
+    )
     with phase("stack-before"):
         stack_before = evaluate_stack(m, cfg, goal_names)
-    with phase("repair"):
-        model, n_polish = hard_repair(m, cfg, goal_names)
-    with phase("hot-list"):
-        evac = hot_partition_list(model, goal_names, cfg) if inter else None
-    with phase("anneal"):
-        sa = anneal(model, cfg, goal_names, opts.anneal, evac=evac)
+    if overlap:
+        # the repair phase starts the thread; the first anneal chunk runs
+        # beside it and the anneal phase joins it
+        with phase("repair", backend=backend, overlap=True):
+            bg = _BackgroundRepair(m, cfg, goal_names, backend)
+        try:
+            with phase("anneal"):
+                sa, n_polish = _anneal_overlapped(m, cfg, goal_names, opts.anneal, run, bg)
+        finally:
+            # never leave the thread running past a failed or cancelled anneal
+            bg.join()
+    else:
+        with phase("repair", backend=backend, overlap=False):
+            model, n_polish = hard_repair(m, cfg, goal_names, backend=backend)
+        with phase("hot-list"):
+            evac = hot_partition_list(model, goal_names, cfg) if inter else None
+        with phase("anneal"):
+            sa = anneal(model, cfg, goal_names, opts.anneal, evac=evac)
     tally(sa, "anneal")
     model, stack_after = sa.model, sa.stack_after
     with phase("polish"):
@@ -462,7 +582,7 @@ def _optimize(
         for _ in range(max(opts.max_repair_rounds - 1, 0)):
             if float(stack_after.hard_violations) <= 0:
                 break
-            model, n_r = hard_repair(model, cfg, goal_names)
+            model, n_r = hard_repair(model, cfg, goal_names, backend=backend)
             n_polish += n_r
             if not opts.run_polish:
                 if n_r == 0:
@@ -563,6 +683,11 @@ def _optimize(
             stack_after=stack_after,
             require_hard_zero=opts.require_hard_zero,
         )
+    if costmodel.capture_enabled() and costmodel.pending_count():
+        # read the first calls this cold run measured (cold path only: a
+        # warm run measures nothing)
+        with phase("cost-capture", pending=costmodel.pending_count()):
+            costmodel.capture_pending()
     return OptimizerResult(
         diff=dcols,
         stack_before=stack_before,

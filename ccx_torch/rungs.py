@@ -130,7 +130,8 @@ def wire_options(opts: OptimizeOptions) -> dict:
         "exchange_interval": a.exchange_interval, "bf16_scoring": a.bf16_scoring,
         "polish_candidates": g.n_candidates, "polish_max_iters": g.max_iters,
         "polish_patience": g.patience, "polish_batch_moves": g.batch_moves,
-        "polish_chunk_iters": g.chunk_iters,
+        "polish_chunk_iters": g.chunk_iters, "polish_swap_fraction": g.swap_fraction,
+        "repair_backend": opts.repair_backend, "overlap_repair": opts.overlap_repair,
         "check_evacuation": opts.check_evacuation, "max_repair_rounds": opts.max_repair_rounds,
         "require_hard_zero": opts.require_hard_zero, "run_polish": opts.run_polish,
         "run_leader_pass": opts.run_leader_pass, "run_cold_greedy": opts.run_cold_greedy,

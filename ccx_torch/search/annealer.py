@@ -47,6 +47,7 @@ import logging
 import numpy as np
 import torch
 
+from ccx_torch.common import costmodel
 from ccx_torch.common.resources import Resource
 from ccx_torch.goals import topic_terms as tt
 from ccx_torch.goals.base import GOAL_REGISTRY, GoalConfig
@@ -263,6 +264,7 @@ def _scores_capacity(goal_names: tuple[str, ...]) -> bool:
     return allows_inter_broker(goal_names) and bool(CAPACITY_GOALS & set(goal_names))
 
 
+@costmodel.instrument("hot-list")
 def hot_partition_list(
     m: TensorClusterModel,
     goal_names: tuple[str, ...] = (),
@@ -1466,6 +1468,10 @@ def round_up_chains(n_chains: int, ranks: int, where: str, n_temps: int = 1) -> 
     return rounded
 
 
+#: the chains' starting state, counted on the cost ledger
+_chain_init = costmodel.instrument("chain-init")(init_search_state)
+
+
 def anneal(
     m: TensorClusterModel,
     cfg: GoalConfig = GoalConfig(),
@@ -1500,7 +1506,7 @@ def anneal(
             "the one-loop run stays flat", opts.n_temps,
         )
     C = round_up_chains(opts.n_chains, 1, "anneal", n_temps=n_temps) if n_temps > 1 else opts.n_chains
-    state = init_search_state(m, cfg, goal_names, group=group, n_chains=C)
+    state = _chain_init(m, cfg, goal_names, group=group, n_chains=C)
     gen = torch.Generator(device=m.device)
     gen.manual_seed(opts.seed)
     n = max(opts.n_steps, 1)
@@ -1534,8 +1540,12 @@ def anneal(
                     _unified_move(state, d, temp, share, evac_idx, n_evac, **kw)
 
     convergence = plateau_info = None
+    # the cost ledger's signature of this run's chunk: the state's shapes
+    # and the step's engine and sizes (never the budget or the seed)
+    sig = costmodel.signature(state, engine, moves, n_temps, opts.chunk_steps)
     if not chunked:
-        run_steps(0, opts.n_steps)
+        costmodel.instrument("sa-monolith", iters=opts.n_steps, sig=sig, device=m.device)(
+            run_steps)(0, opts.n_steps)
     else:
         from ccx_torch.search import telemetry
 
@@ -1576,6 +1586,7 @@ def anneal(
             )
         # heartbeat energy: the best chain's top-tier cost
         probe = (lambda _: state.cost_vec[:, 0].min()) if tap is not None else None
+        run_one = costmodel.instrument("sa-chunk", iters=chunk, sig=sig, device=m.device)(run_one)
         drive_chunks(run_one, None, total=n, chunk=chunk, probe=probe, plateau=plateau)
         ladder = None
         if n_temps > 1:

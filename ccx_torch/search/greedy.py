@@ -9,7 +9,9 @@ subset of the improving, hard-safe ones (disjoint partitions, topics and
 touched brokers make every per-broker, per-topic and per-partition term
 exactly additive), re-checks the composed batch exactly, applies it, and
 stops after ``patience`` consecutive iterations without an improving
-candidate.
+candidate. With ``swap_fraction > 0`` a share of the candidates are uniform
+two-partition swaps (``PolishIteration``), competing with the single moves
+in the same disjoint batch.
 
 ``swap_polish`` is the count-preserving descent: each iteration ranks every
 partition by broker band pressure times replica usage, draws hot/cold
@@ -36,6 +38,7 @@ import dataclasses
 
 import torch
 
+from ccx_torch.common import costmodel
 from ccx_torch.common.resources import Resource
 from ccx_torch.goals import topic_terms as tt
 from ccx_torch.goals.base import GOAL_REGISTRY, GoalConfig
@@ -45,7 +48,10 @@ from ccx_torch.model.tensor_model import TensorClusterModel
 from ccx_torch.search.annealer import (
     CAPACITY_GOALS,
     RACK_TARGET_GOALS,
+    PartitionDraws,
     ProposalParams,
+    SingleDraws,
+    SwapProposalDraws,
     _at,
     _draw_partition,
     _gumbel,
@@ -57,15 +63,19 @@ from ccx_torch.search.annealer import (
     broker_masks,
     draw_partitions,
     draw_single,
+    draw_swap,
     drive_chunks,
     goal_tols,
     hot_partition_list,
+    lead_swap_share,
+    propose_swap,
     real_sizes,
 )
 from ccx_torch.search.state import (
     KIND_SINGLE,
     PartitionView,
     SearchState,
+    SwapDelta,
     _placement_updates,
     cat_views,
     broker_pressure,
@@ -96,6 +106,11 @@ class GreedyOptions:
     p_disk: float = 0.0
     p_biased_dest: float = 0.5
     p_evac: float = 0.3
+    #: share of the candidates proposed as uniform two-partition swaps
+    #: (replica swaps and leadership rotations), competing with the single
+    #: moves in one disjoint batch. 0 (the JAX package's default): the
+    #: count-preserving moves belong to ``swap_polish``
+    swap_fraction: float = 0.0
     #: apply up to this many non-conflicting improving moves per iteration
     batch_moves: int = 16
     #: every proposal is a leadership movement (the final leadership pass)
@@ -339,12 +354,17 @@ def _poll_stop(poll: dict, live: torch.Tensor) -> bool:
     return False
 
 
-def _drive_descent(iteration, ss: SearchState, goal_names, opts, dev):
+def _drive_descent(iteration, ss: SearchState, goal_names, opts, dev, label: str):
     """Run ``iteration(live) -> applied`` (int tensor, 0 where not live) to
     the stop rule: ``opts.max_iters`` iterations, or ``opts.patience``
     consecutive ones that applied nothing. Returns (iterations, moves,
-    convergence segment or None)."""
+    convergence segment or None). Each chunk counts on the cost ledger as
+    ``<label>-chunk`` (the one loop as ``<label>-loop``)."""
     from ccx_torch.search import telemetry
+
+    # the ledger's signature: the state's shapes and the options that shape
+    # an iteration, never the budget or the seed
+    sig = costmodel.signature(ss, dataclasses.replace(opts, max_iters=0, patience=0, seed=0))
 
     i32 = dict(dtype=torch.int32, device=dev)
     it = torch.zeros((), **i32)
@@ -377,14 +397,157 @@ def _drive_descent(iteration, ss: SearchState, goal_names, opts, dev):
 
         # heartbeat energy: the top-tier cost, read after the stop flag
         probe = (lambda _: ss.cost_vec[0, 0]) if tap is not None else None
+        run_one = costmodel.instrument(f"{label}-chunk", iters=opts.chunk_iters, sig=sig,
+                                       device=dev)(run_one)
         drive_chunks(run_one, None, total=opts.max_iters, chunk=opts.chunk_iters, probe=probe)
         convergence = telemetry.decode(
             tap, goal_names, chunk_size=opts.chunk_iters, budget=opts.max_iters
         )
     else:
-        while bool(live()):
-            one()
+        def loop() -> None:
+            while bool(live()):
+                one()
+
+        costmodel.instrument(f"{label}-loop", iters=opts.max_iters, sig=sig, device=dev)(loop)()
     return int(it), int(moves), convergence
+
+
+@dataclasses.dataclass
+class PolishDraws:
+    """Draws of one polish iteration: the single moves' partitions and
+    plans, and the uniform swaps' (None without pair candidates)."""
+
+    part: PartitionDraws
+    single: SingleDraws
+    swap: SwapProposalDraws | None = None
+
+
+def draw_polish(gen: torch.Generator, n_single: int, n_swap: int, m: TensorClusterModel,
+                pp: ProposalParams, n_evac: int) -> PolishDraws:
+    dev = m.device
+    part = draw_partitions(gen, n_single, pp, n_evac, dev)
+    single = draw_single(gen, n_single, m, pp)
+    swap = None
+    if n_swap:
+        swap = SwapProposalDraws(
+            p1=torch.randint(0, pp.p_real, (n_swap,), generator=gen, device=dev),
+            p2=torch.randint(0, pp.p_real, (n_swap,), generator=gen, device=dev),
+            plan=draw_swap(gen, n_swap, m),
+        )
+    return PolishDraws(part, single, swap)
+
+
+def polish_params(m: TensorClusterModel, cfg: GoalConfig, goal_names: tuple[str, ...],
+                  opts: GreedyOptions) -> ProposalParams:
+    """The polish's proposal knobs (the JAX package's ``greedy_optimize``)."""
+    p_real, b_real = real_sizes(m)
+    lead_only = opts.leadership_only
+    allow_inter = allows_inter_broker(goal_names)
+    return ProposalParams(
+        p_real=p_real,
+        b_real=b_real,
+        p_leadership=1.0 if lead_only else opts.p_leadership,
+        p_disk=0.0 if lead_only else opts.p_disk,
+        p_biased_dest=0.0 if lead_only else opts.p_biased_dest,
+        p_evac=0.0 if lead_only else opts.p_evac,
+        target_rack=(not lead_only) and bool(RACK_TARGET_GOALS & set(goal_names)),
+        allow_inter=allow_inter and not lead_only,
+        p_swap=opts.swap_fraction if allow_inter else 0.0,
+        target_capacity=(not lead_only) and bool(CAPACITY_GOALS & set(goal_names)),
+        cap_thresholds=tuple(cfg.capacity_threshold),
+        # in leadership-only mode every swap is a leadership rotation: a
+        # replica swap would move replicas between brokers
+        p_lead_swap=1.0 if lead_only else lead_swap_share(opts.p_leadership),
+    )
+
+
+class PolishIteration:
+    """One polish iteration on a single-chain state: ``n_single`` single
+    moves and, with ``swap_fraction > 0`` where inter-broker moves are
+    allowed, ``n_swap`` uniform two-partition swaps, all scored exactly and
+    competing in one disjoint batch (a single move is a pair whose b side
+    is inert)."""
+
+    def __init__(self, m: TensorClusterModel, cfg: GoalConfig, goal_names: tuple[str, ...],
+                 opts: GreedyOptions, pp: ProposalParams, evac, n_evac: int, trd_guard: bool,
+                 group=None):
+        self.m, self.pp, self.evac, self.n_evac, self.trd_guard = m, pp, evac, n_evac, trd_guard
+        self.group = group
+        dev = m.device
+        self.n_swap = int(opts.n_candidates * opts.swap_fraction) if pp.p_swap > 0 else 0
+        self.n_single = max(opts.n_candidates - self.n_swap, 1)
+        self.n_batch = max(min(opts.batch_moves, self.n_single), 1)
+        self.scorer = make_move_scorer(m, goal_names, cfg)
+        self.swap_scorer = make_swap_scorer(m, goal_names, cfg) if self.n_swap else None
+        self.vector_fn = make_cost_vector_fn(m, goal_names, cfg)
+        self.hard_arr = torch.tensor(tuple(GOAL_REGISTRY[n].hard for n in goal_names), device=dev)
+        self.guard_cols = torch.tensor(
+            tuple(n == "TopicReplicaDistributionGoal" for n in goal_names), device=dev
+        )
+        self.chain = torch.zeros(self.n_single, dtype=torch.long, device=dev)
+        #: candidates whose b side is real (None: singles only)
+        self.dual = None
+        if self.n_swap:
+            self.chain_sw = torch.zeros(self.n_swap, dtype=torch.long, device=dev)
+            self.dual = torch.arange(self.n_single + self.n_swap, device=dev) >= self.n_single
+            self.kinds = torch.arange(3, device=dev)
+            self.rows0 = torch.zeros(3, dtype=torch.long, device=dev)
+
+    def draw(self, gen: torch.Generator) -> PolishDraws:
+        return draw_polish(gen, self.n_single, self.n_swap, self.m, self.pp, self.n_evac)
+
+    def __call__(self, ss: SearchState, d: PolishDraws, live: torch.Tensor) -> torch.Tensor:
+        """Run one iteration in place, nothing applied where ``live`` (a
+        device bool) is False; returns the candidates applied."""
+        m, pp = self.m, self.pp
+        ps, use_evac = _draw_partition(d.part, pp, self.evac, self.n_evac)
+        view = gather_views(ss, m, self.chain, ps)
+        old, new, feas = _single_plan(d.single, ss, self.chain, m, pp, view, use_evac)
+        deltas = self.scorer(ss, self.chain, view, old, new)
+        if not self.n_swap:
+            _, write_a = _descend(
+                ss, m, self.group, Pairs(pa=ps, va=view, olda=old, newa=new, deltas=deltas), feas,
+                self.hard_arr, self.trd_guard, self.guard_cols, self.vector_fn, self.n_batch,
+                dual=None, live=live,
+            )
+            n_acc = write_a.sum().int()
+            bump_kind_counters(ss, self.chain[:1], KIND_SINGLE,
+                               (live.int() * self.n_single).reshape(1), n_acc.reshape(1))
+            return n_acc
+        p1, v1, o1, n1, p2, v2, o2, n2, sw_ok, sw_lead = propose_swap(d.swap, ss, self.chain_sw, m, pp)
+        wd = self.swap_scorer(ss, self.chain_sw, v1, o1, n1, v2, o2, n2)
+        inert = tuple(torch.full_like(x, -1) for x in old)
+
+        def cat(a, b):
+            return torch.cat([a, b])
+
+        pairs = Pairs(
+            pa=cat(ps, p1), va=cat_views(view, v1),
+            olda=tuple(map(cat, old, o1)), newa=tuple(map(cat, new, n1)),
+            deltas=SwapDelta(
+                cost_vec=cat(deltas.cost_vec, wd.cost_vec),
+                part_sums=cat(deltas.part_sums, wd.part_sums),
+                d_mtl=cat(deltas.d_mtl, wd.d_mtl),
+                d_trd=cat(deltas.d_trd, wd.d_trd),
+                d_total=cat(deltas.d_total, wd.d_total),
+                d_total2=cat(torch.zeros_like(deltas.d_total), wd.d_total2),
+            ),
+            pb=cat(ps, p2), vb=cat_views(view, v2),
+            oldb=tuple(map(cat, inert, o2)), newb=tuple(map(cat, inert, n2)),
+        )
+        safe, write_a = _descend(
+            ss, m, self.group, pairs, cat(feas, sw_ok), self.hard_arr, self.trd_guard,
+            self.guard_cols, self.vector_fn, self.n_batch, dual=self.dual, live=live,
+        )
+        lead = cat(torch.zeros_like(feas), sw_lead)
+        dual_s, lead_s = self.dual[safe], lead[safe]
+        n_lead_prop = sw_lead.sum().int()
+        prop = torch.stack([torch.full_like(n_lead_prop, self.n_single),
+                            self.n_swap - n_lead_prop, n_lead_prop]) * live.int()
+        acc = torch.stack([(write_a & ~dual_s).sum(), (write_a & dual_s & ~lead_s).sum(),
+                           (write_a & dual_s & lead_s).sum()]).int()
+        bump_kind_counters(ss, self.rows0, self.kinds, prop, acc)
+        return acc.sum()
 
 
 def greedy_optimize(
@@ -399,21 +562,8 @@ def greedy_optimize(
     ``trd_guard`` also vetoes candidates that significantly worsen the
     TopicReplicaDistribution tier."""
     stack_before = evaluate_stack(m, cfg, goal_names)
-    p_real, b_real = real_sizes(m)
-    lead_only = opts.leadership_only
-    pp = ProposalParams(
-        p_real=p_real,
-        b_real=b_real,
-        p_leadership=1.0 if lead_only else opts.p_leadership,
-        p_disk=0.0 if lead_only else opts.p_disk,
-        p_biased_dest=0.0 if lead_only else opts.p_biased_dest,
-        p_evac=0.0 if lead_only else opts.p_evac,
-        target_rack=(not lead_only) and bool(RACK_TARGET_GOALS & set(goal_names)),
-        allow_inter=allows_inter_broker(goal_names) and not lead_only,
-        target_capacity=(not lead_only) and bool(CAPACITY_GOALS & set(goal_names)),
-        cap_thresholds=tuple(cfg.capacity_threshold),
-    )
-    if lead_only:
+    pp = polish_params(m, cfg, goal_names, opts)
+    if opts.leadership_only:
         # leadership moves cannot heal placement offenders
         evac, n_evac = None, 0
     else:
@@ -422,33 +572,15 @@ def greedy_optimize(
         make_topic_group(m, max_partitions_per_topic(m)) if stack_needs_topic(goal_names) else None
     )
     ss = init_search_state(m, cfg, goal_names, group=group)
-    scorer = make_move_scorer(m, goal_names, cfg)
-    vector_fn = make_cost_vector_fn(m, goal_names, cfg)
+    step = PolishIteration(m, cfg, goal_names, opts, pp, evac, n_evac, trd_guard, group)
     dev = m.device
-    hard_arr = torch.tensor(tuple(GOAL_REGISTRY[n].hard for n in goal_names), device=dev)
-    guard_cols = torch.tensor(
-        tuple(n == "TopicReplicaDistributionGoal" for n in goal_names), device=dev
-    )
-    N = max(opts.n_candidates, 1)
-    n_batch = max(min(opts.batch_moves, N), 1)
-    chain = torch.zeros(N, dtype=torch.long, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(opts.seed + 1)
 
     def iteration(live: torch.Tensor) -> torch.Tensor:
-        ps, use_evac = _draw_partition(draw_partitions(gen, N, pp, n_evac, dev), pp, evac, n_evac)
-        view = gather_views(ss, m, chain, ps)
-        old, new, feas = _single_plan(draw_single(gen, N, m, pp), ss, chain, m, pp, view, use_evac)
-        deltas = scorer(ss, chain, view, old, new)
-        _, write_a = _descend(
-            ss, m, group, Pairs(pa=ps, va=view, olda=old, newa=new, deltas=deltas), feas,
-            hard_arr, trd_guard, guard_cols, vector_fn, n_batch, dual=None, live=live,
-        )
-        n_acc = write_a.sum().int()
-        bump_kind_counters(ss, chain[:1], KIND_SINGLE, (live.int() * N).reshape(1), n_acc.reshape(1))
-        return n_acc
+        return step(ss, step.draw(gen), live)
 
-    n_iters, moves, convergence = _drive_descent(iteration, ss, goal_names, opts, dev)
+    n_iters, moves, convergence = _drive_descent(iteration, ss, goal_names, opts, dev, "polish")
     result_model = with_placement(m, ss)
     return GreedyResult(
         model=result_model,
@@ -696,7 +828,8 @@ def swap_polish(
     def iteration(live: torch.Tensor) -> torch.Tensor:
         return step(ss, draw_swap_polish(gen, m, step.N), opts.trd_guard, live)
 
-    n_iters, moves, convergence = _drive_descent(iteration, ss, goal_names, opts, m.device)
+    n_iters, moves, convergence = _drive_descent(iteration, ss, goal_names, opts, m.device,
+                                                 "swap-polish")
     result_model = with_placement(m, ss)
     return GreedyResult(
         model=result_model,

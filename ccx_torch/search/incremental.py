@@ -41,6 +41,7 @@ import weakref
 
 import torch
 
+from ccx_torch.common import costmodel
 from ccx_torch.common.devmem import DEVMEM
 from ccx_torch.common.faults import FAULTS
 from ccx_torch.goals.base import GoalConfig
@@ -100,6 +101,9 @@ class IncrementalOptions:
     warm_t0: float = 1e-8
     #: leadership-only greedy iterations after the warm engines (0: none)
     warm_leader_iters: int = 0
+    #: count backstop of the process-wide placement store (``configure``):
+    #: warm bases are priced in bytes on the device-memory ledger first
+    max_sessions: int = 32
     #: leadership-only profile: the warm base is usable only when its
     #: replica placement equals the snapshot's
     leadership_only: bool = False
@@ -283,6 +287,13 @@ class PlacementStore:
 STORE = PlacementStore(ledger=DEVMEM)
 
 
+def configure(max_sessions: int | None = None) -> None:
+    """Set the process-wide store's session cap (a positive count; None or
+    0 keeps the current one)."""
+    if max_sessions is not None and max_sessions > 0:
+        STORE.max_sessions = int(max_sessions)
+
+
 # ----- warm-base construction --------------------------------------------------
 
 
@@ -332,6 +343,7 @@ def _touched_mask(new: torch.Tensor, old: torch.Tensor) -> tuple[torch.Tensor, t
     return mask, mask.sum().int()
 
 
+@costmodel.instrument("warm-init")
 def warm_init(wm: TensorClusterModel, banked: torch.Tensor | None, cfg: GoalConfig,
               goal_names: tuple[str, ...]):
     """The fused first half of a warm window: one aggregates launch shared
@@ -352,6 +364,7 @@ def warm_init(wm: TensorClusterModel, banked: torch.Tensor | None, cfg: GoalConf
     return state0, stack, press, mask, count
 
 
+@costmodel.instrument("warm-finish")
 def warm_finish(model: TensorClusterModel, cfg: GoalConfig, goal_names: tuple[str, ...]):
     """(exact StackResult, float32[6, B] pressure stack) of a final
     placement from one aggregates launch: the result evaluation and the

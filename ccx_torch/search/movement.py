@@ -34,6 +34,8 @@ import os
 import numpy as np
 import torch
 
+from ccx_torch.common import costmodel
+
 #: ``CCX_DEVICE_PLAN=0`` routes every plan through the numpy oracle, ``=1``
 #: forces the device loop; unset applies the size gate below
 ENV_DEVICE_PLAN = "CCX_DEVICE_PLAN"
@@ -242,6 +244,7 @@ def _prepare(cols: dict, bytes_pp: np.ndarray | None):
     return src, dst, b, order
 
 
+@costmodel.instrument("plan-waves")
 def _plan_numpy(src, dst, b, order, W: int, B: int, cap: int, budget: float):
     """The reference greedy (the correctness pin): for each row in LPT
     order, among the waves where every involved broker is below the
@@ -310,6 +313,7 @@ def _plan_numpy(src, dst, b, order, W: int, B: int, cap: int, budget: float):
     return wave, inb, outb, overflow
 
 
+@costmodel.instrument("plan-waves")
 def _plan_device(src, dst, b, order, W: int, B: int, cap: int, budget: float, device):
     """The oracle's greedy as a loop of torch ops over the rows on
     ``device``: the rows are copied there once, the [W, B] per-wave broker

@@ -21,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ccx_torch.common import costmodel
 from ccx_torch.common.resources import NUM_RESOURCES, Resource
 from ccx_torch.goals.base import GoalConfig
 from ccx_torch.model.aggregates import broker_aggregates
@@ -194,6 +195,13 @@ def _sweep_impl(
     return new_assignment, new_replica_disk, n_moved, n_over_b, n_struct
 
 
+#: one sweep, counted on the cost ledger
+_sweep = costmodel.instrument("repair-sweep")(_sweep_impl)
+
+#: the loop drivers ``hard_repair`` accepts (the JAX package's names)
+REPAIR_BACKENDS = ("device", "host")
+
+
 def _leader_fix(m: TensorClusterModel, assignment: torch.Tensor, leader_slot: torch.Tensor) -> torch.Tensor:
     """Point leaders at an alive, non-excluded replica where possible:
     keep the current leader when it may lead, else the first slot that may."""
@@ -218,6 +226,7 @@ def hard_repair(
     max_sweeps: int = 8,
     seed: int = 17,
     nk: int | None = None,
+    backend: str = "host",
 ) -> tuple[TensorClusterModel, int]:
     """Sweep until no targetable hard offenders remain (or ``max_sweeps``).
 
@@ -225,7 +234,16 @@ def hard_repair(
     inter-broker movement get placement sweeps; leader placement is fixed
     in all cases. The loop stops after a sweep that moved nothing, or when
     capacity shedding stops reducing the over-capacity broker count while no
-    structural offender (dead broker or disk, duplicate, rack) remained."""
+    structural offender (dead broker or disk, duplicate, rack) remained.
+
+    ``backend`` names the JAX package's loop driver: ``"device"`` (one
+    fused program) or ``"host"`` (one sweep and one host read per
+    iteration). The port has one driver, which reads the host once per
+    sweep as the JAX ``"host"`` loop does, and both names select it (the
+    JAX package pins its two drivers to the same result); any other value
+    raises ``ValueError``."""
+    if backend not in REPAIR_BACKENDS:
+        raise ValueError(f"repair backend must be one of {REPAIR_BACKENDS}, got {backend!r}")
     assignment, leader_slot, replica_disk = m.assignment, m.leader_slot, m.replica_disk
     total = 0
     if allows_inter_broker(goal_names):
@@ -238,7 +256,7 @@ def hard_repair(
         )
         prev_over = None
         for _ in range(max_sweeps):
-            assignment, replica_disk, n, n_over, n_struct = _sweep_impl(
+            assignment, replica_disk, n, n_over, n_struct = _sweep(
                 m, assignment, leader_slot, replica_disk, gen, **kw
             )
             n, n_over, n_struct = (int(x) for x in torch.stack([n, n_over, n_struct]).tolist())

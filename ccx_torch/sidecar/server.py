@@ -24,9 +24,12 @@ device.
 
 The port serves on the device it was given (the CUDA device by default)
 and has no fallback: a failing launch, graft or synchronize fails the RPC
-with a structured error. The JAX package's ``/metrics`` gauges of its
-compile counters and cost model are not exported here (those modules are
-not ported).
+with a structured error. ``main`` probes the card at startup
+(``ccx_torch.device.ensure_responsive_backend``; a failed or hung probe
+ends the server), arms the cost ledger's capture unless
+``CCX_COST_CAPTURE=0``, and the gRPC server exports the kernel-build
+(``compile-*``), cost (``cost-*``) and device-memory gauges on the process
+registry under the JAX package's names (``export_gauges``).
 """
 
 from __future__ import annotations
@@ -43,10 +46,10 @@ from concurrent import futures
 import numpy as np
 import torch
 
-from ccx_torch.common import devmem, faults
+from ccx_torch.common import compilestats, costmodel, devmem, faults
 from ccx_torch.common.resources import NUM_RESOURCES
 from ccx_torch.common.tracing import TRACER
-from ccx_torch.device import resolve_device
+from ccx_torch.device import ensure_responsive_backend, resolve_device
 from ccx_torch.goals.base import GOAL_REGISTRY, GoalConfig
 from ccx_torch.goals.stack import DEFAULT_GOAL_ORDER
 from ccx_torch.model.snapshot import (
@@ -346,19 +349,13 @@ class SnapshotRegistry:
             }
 
 
-#: the wire options the port cannot honor beyond the JAX package's default:
-#: it has one repair path, no repair/anneal overlap, and its polish moves
-#: no swaps (the swap polish stage does)
-_FIXED_OPTIONS = {"repair_backend": "device", "overlap_repair": False, "polish_swap_fraction": 0.0}
-
-
 def options_from_wire(o: dict, warm: bool) -> OptimizeOptions:
     """The ``OptimizeOptions`` of a Propose's ``options`` map, key for key
     as the JAX package's sidecar maps them (``wire.PROPOSE_OPTION_KEYS``),
-    with its defaults for absent keys. An unknown key, or a value of
-    ``repair_backend``, ``overlap_repair`` or ``polish_swap_fraction``
-    other than the one path the port runs, is an invalid argument: the RPC fails rather than run another
-    configuration than the client asked for."""
+    with its defaults for absent keys. An unknown key, or a
+    ``repair_backend`` other than ``"device"`` or ``"host"``, is an invalid
+    argument: the RPC fails rather than run another configuration than the
+    client asked for."""
     unknown = set(o) - wire.PROPOSE_OPTION_KEYS
     if unknown:
         raise ValueError(
@@ -368,9 +365,6 @@ def options_from_wire(o: dict, warm: bool) -> OptimizeOptions:
     backend = str(o.get("repair_backend", "device"))
     if backend not in ("device", "host"):
         raise ValueError(f"repair_backend must be 'device' or 'host', got {backend!r}")
-    for key, only in _FIXED_OPTIONS.items():
-        if key in o and o[key] != only:
-            raise ValueError(f"option {key}={o[key]!r} is not supported by this sidecar (only {only!r})")
 
     def opt_int(key):
         return int(o[key]) if o.get(key) is not None else None
@@ -394,6 +388,7 @@ def options_from_wire(o: dict, warm: bool) -> OptimizeOptions:
             max_iters=int(o.get("polish_max_iters", 400)),
             patience=int(o.get("polish_patience", 8)),
             batch_moves=int(o.get("polish_batch_moves", 16)),
+            swap_fraction=float(o.get("polish_swap_fraction", 0.0)),
             chunk_iters=int(o.get("polish_chunk_iters", 50)),
         ),
         check_evacuation=bool(o.get("check_evacuation", True)),
@@ -402,6 +397,8 @@ def options_from_wire(o: dict, warm: bool) -> OptimizeOptions:
         run_polish=bool(o.get("run_polish", True)),
         run_leader_pass=bool(o.get("run_leader_pass", True)),
         run_cold_greedy=bool(o.get("run_cold_greedy", True)),
+        repair_backend=backend,
+        overlap_repair=bool(o.get("overlap_repair", False)),
         topic_rebalance_rounds=int(o.get("topic_rebalance_rounds", 2)),
         topic_rebalance_max_sweeps=int(o.get("topic_rebalance_max_sweeps", 1024)),
         topic_rebalance_move_leaders=bool(o.get("topic_rebalance_move_leaders", True)),
@@ -741,6 +738,15 @@ def _decode_snapshot(packed: bytes, what: str) -> dict:
         raise wire.WireError(wire.ERR_BAD_SNAPSHOT, f"undecodable {what}: {e}") from e
 
 
+def export_gauges() -> None:
+    """Put the kernel-build (``compile-*``), cost-ledger (``cost-*``) and
+    device-memory gauges on the process registry, so whoever renders
+    ``/metrics`` in this process sees them from the first scrape."""
+    compilestats.export_gauges()
+    costmodel.export_gauges()
+    devmem.DEVMEM.stats()
+
+
 def make_grpc_server(sidecar: OptimizerSidecar | None = None,
                      address: str = "127.0.0.1:0",
                      max_workers: int | None = None):
@@ -753,8 +759,7 @@ def make_grpc_server(sidecar: OptimizerSidecar | None = None,
     if max_workers is None:
         max_workers = int(os.environ.get("CCX_SIDECAR_WORKERS", "16"))
     sidecar = sidecar or OptimizerSidecar()
-    # seed the ledger's gauges so /metrics shows them from the first scrape
-    devmem.DEVMEM.stats()
+    export_gauges()
 
     def unary(fn, rpc_name):
         def handler(request: bytes, context):
@@ -843,6 +848,14 @@ def main(argv=None) -> int:
                          "CCX_DEVMEM_BUDGET_MB, else derived from the device)")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
+    if args.device is None or torch.device(args.device).type == "cuda":
+        # a card that hangs every launch must end the server here, not hang
+        # its first Propose; there is no CPU fallback
+        ensure_responsive_backend()
+    # the resident sidecar is the cold path: measure the first call of each
+    # new shape (read in the cost-capture phase; CCX_COST_CAPTURE=0 opts out)
+    if os.environ.get(costmodel.ENV_CAPTURE) != "0":
+        costmodel.set_capture(True)
     # CCX_FAULTS injects deterministic faults at the named seams; never
     # armed implicitly
     if faults.FAULTS.arm_from_env():

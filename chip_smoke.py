@@ -4,8 +4,9 @@
 Phases, one JSON line each:
 
 1. device — the card's name, count and ``nvidia-smi`` name/power limit,
-   and whether ``grpc`` and ``msgpack`` import (with their versions); TF32
-   off for matrix products and convolutions;
+   and whether ``grpc`` and ``msgpack`` import (with their versions); the
+   port's liveness probe (``ccx_torch.device.ensure_responsive_backend``,
+   a subprocess) must pass; TF32 off for matrix products and convolutions;
 2. build — the hand-written CUDA kernels, compiled with nvcc for sm_90a from
    the sources in this checkout, with their build time;
 3. kernel checks — each kernel against its plain PyTorch version on the
@@ -70,14 +71,29 @@ Phases, one JSON line each:
    is armed for the phase; its summary must name every phase of the cold
    Propose. Put, round-trip and wire-overhead seconds, segments,
    ``DEVMEM.stats()`` and the card's memory peak;
-10. fleet — two sessions of B3 with priorities 0 and 5 Propose at once
+10. sidecar options — the same sidecar path with the three options the port
+   once refused (``repair_backend="host"``, ``overlap_repair=true``,
+   ``polish_swap_fraction=0.25``) and the cost ledger's capture armed: a
+   full PutSnapshot of B5, a streamed cold Propose at the target rung, its
+   250 SA steps in two chunks of 125 so the overlap runs (it
+   must verify with zero hard violations, run the ``repair-join``,
+   ``repair-concurrent`` and ``cost-capture`` phases, and carry a
+   ``costModel`` naming the card with ``broker-aggregates``, ``sa-chunk``
+   and ``polish-chunk`` rows, and phase spans with the cost rollup), a
+   repeat of it (memo hit: no new record), a delta and one warm window (no
+   ``cost-capture`` phase, no new record); then the ``compile-*`` and
+   ``cost-*`` gauges must be on the registry and show the kernel's build.
+   Phase seconds beside ``sidecar-serve``'s default cold Propose, the
+   polish's accepted moves by kind, launches, and the ``broker-aggregates``
+   row's bound, which must equal the ``kernels`` line's ``bound_ms``;
+11. fleet — two sessions of B3 with priorities 0 and 5 Propose at once
    through the fleet scheduler under a registry budget of 1.5 models,
    so the urgent job's build evicts the other's: both verify, each gets
    chunk grants while the other is registered, the evicted session's next
    Propose rebuilds and verifies (and gives one job's time alone), the pair
    runs again at dispatch width 8 for its seconds, and a job cancelled
    mid-anneal raises ``JobCancelled`` and leaves the run queue;
-11. result check — a small cluster's stack on the card held against the same
+12. result check — a small cluster's stack on the card held against the same
    stack on the CPU, and three batched SA steps on a 64-broker cluster (3
    chains, 4 moves), then three swap-polish iterations, fed the same draws
    on the card and on the CPU: integer state, placement and grouped mirror
@@ -87,7 +103,7 @@ Phases, one JSON line each:
    mask and hot list (pressure stack within rtol 1e-5 / atol 1e-3) on both,
    and the CPU window's diff planned by the device loop on both gives the
    same waves;
-12. after the paths, which so run as they would alone: the same kernel
+13. after the paths, which so run as they would alone: the same kernel
    check on B6 (10k brokers / 1M partitions, whose shared rows need broker
    tiles), then the kernel times at B5, 4000 brokers and B6 (last, since
    torch.profiler's tracing slows every later launch of the process):
@@ -98,20 +114,20 @@ Phases, one JSON line each:
    version's time, and the same times on the model the sidecar built from
    the wire. The ``kernels`` line gives B5's: its ``ms`` is the call time
    ``call_ms``, beside ``device_ms`` and ``host_us``;
-13. profile — the device busy share and kernel count, under torch.profiler,
+14. profile — the device busy share and kernel count, under torch.profiler,
    of windows on the repaired B5 model: 10 single-move SA steps
    (``p_swap=0``) and 10 polish iterations, as measured before the swap
    engine, then 10 batched SA steps at ``p_swap=0.15`` and 10 swap-polish
    iterations, and one more warm window on the warm path's last snapshot;
    before them, how many times each of these calls (10 steps or
    iterations; one warm window) makes the host wait for the card;
-14. the card's ``nvidia-smi`` line, then the ``kernels`` line, then the
+15. the card's ``nvidia-smi`` line, then the ``kernels`` line, then the
    contract line ``{"ok": true, "device": {...}}`` last.
 
 Any failed check, an unverified result, remaining hard violations, a path
 that never proposed both kinds of swap (target) or launched a kernel of
 the path zero times exits non-zero. Each path (main, lean, warm,
-structural, ladder, sidecar serve, fleet) sets the launch count to 0 just
+structural, ladder, sidecar serve, sidecar options, fleet) sets the launch count to 0 just
 before it runs and reads it just after. Needs one CUDA
 device; run from the repository root: ``python3 chip_smoke.py``.
 """
@@ -127,10 +143,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-#: H100 SXM data-sheet peaks (dense): memory rate and float32 rate outside
-#: the tensor cores
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_OPS_PER_S = 67e12
 RTOL, ATOL = 1e-5, 1e-3
 FLOAT_FIELDS = ("broker_load", "potential_nw_out", "leader_bytes_in", "disk_load")
 INT_FIELDS = ("replica_count", "leader_count", "topic_replica_count", "topic_leader_count")
@@ -157,6 +169,11 @@ WARM_UP, WARM_WINDOWS, DRIFT, DRIFT_SEED = 2, 10, 0.01, 123
 DEAD_IN_WINDOW = 2
 #: the sidecar's metrics windows (delta PutSnapshot + warm Propose)
 SERVE_WINDOWS = 10
+#: the sidecar-options phase's Propose options beyond the target rung's,
+#: and its SA chunk: the overlap needs more steps than one chunk, so the
+#: target rung's 250 steps run as two chunks of 125
+OPTION_VALUES = {"repair_backend": "host", "overlap_repair": True, "polish_swap_fraction": 0.25}
+OPTION_CHUNK_STEPS = 125
 #: the fleet phase: B3's priorities, the device-memory budget in resident
 #: models, the dispatch widths the concurrent pair runs at, and its budget
 #: (B3's 20 brokers take the sequential SA engine, so the target rung's
@@ -268,34 +285,25 @@ def fixture_spec(name: str, fixtures):
     return fixtures.bench_spec(name)
 
 
-def time_kernel(agg_op, m, rows: str | None = None) -> dict:
+def time_kernel(agg_op, m, rows: str | None = None, costmodel=None) -> dict:
     """``kernel_times`` of one ``agg_op.broker_aggregates_cuda`` call on
-    ``m`` (``rows`` forced where given), beside the byte bound."""
+    ``m`` (``rows`` forced where given), beside the bound: the least time
+    for the pass on the live card, from the cost model's reckoning
+    (``costmodel.aggregates_bound_ms``, by default this checkout's
+    ``ccx_torch.common.costmodel``: every input read once and every output
+    written once over the card's memory rate, against at most 12 additions
+    per replica at its float32 rate, from the model's live partition and
+    replica counts; the table's peaks are the data sheet's), the same
+    number its ``broker-aggregates`` program row carries."""
+    if costmodel is None:
+        from ccx_torch.common import costmodel
+
     if rows is None:
         call = lambda: agg_op.broker_aggregates_cuda(m)  # noqa: E731
     else:
         call = lambda: agg_op.broker_aggregates_cuda(m, rows)  # noqa: E731
-    bound_ms, bound_by = aggregates_bound_ms(m)
+    bound_ms, bound_by = costmodel.aggregates_bound_ms(m)
     return {**kernel_times(call, TIMING_ITERS), "bound_ms": bound_ms, "bound_by": bound_by}
-
-
-def aggregates_bound_ms(m) -> tuple[float, str]:
-    """Least time for the aggregate pass on this model and what sets it:
-    every input it needs read once and every output written once over the
-    memory rate, against at most 12 additions per replica (7 float, 5
-    int32), all charged at the float32 rate. A padding partition costs only
-    its ``partition_valid`` byte."""
-    P, R, B, T, D = m.P, m.R, m.B, m.num_topics, m.D
-    n_valid = int(m.partition_valid.sum())
-    # assignment and replica_disk rows, leader_slot, partition_topic, and the
-    # leader and follower loads of a live partition
-    per_valid = R * 4 * 2 + 4 * 2 + 2 * 4 * 4
-    read = P * 1 + n_valid * per_valid
-    written = 4 * B * 4 + 4 * B * 4 + 2 * T * B * 4 + B * D * 4
-    n_replicas = int(m.replica_valid.sum())
-    t_bytes = (read + written) / PEAK_BYTES_PER_S
-    t_ops = 12 * n_replicas / PEAK_F32_OPS_PER_S
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def compare_aggregates(got, ref) -> float:
@@ -650,6 +658,11 @@ def percentile(values, q: float) -> float:
     return v[min(int(round(q * (len(v) - 1))), len(v) - 1)]
 
 
+def violations(res: dict) -> dict:
+    """A wire result's violations after, per goal that has any."""
+    return {g["goal"]: g["violationsAfter"] for g in res["goalSummary"] if g["violationsAfter"]}
+
+
 def check_result(res: dict, what: str) -> None:
     """A wire result: verified, no hard goal left violated."""
     if not res["verified"]:
@@ -831,6 +844,7 @@ def sidecar_serve(b5, agg_op, have_grpc: bool) -> tuple[dict, object, dict]:
         "cold": {"round_trip_seconds": cold_rt, "wall_seconds": cold["wallSeconds"],
                  "overhead_seconds": cold_rt - cold["wallSeconds"],
                  "phase_seconds": cold["phaseSeconds"], "wire_seconds": cold["wireSeconds"],
+                 "move_counters": cold["moveCounters"], "violations_after": violations(cold),
                  "proposals": cold["numProposals"], "segments": cold_t["segments"],
                  "segment_bytes": cold["proposalsColumnarBytes"], "frames": cold_t["frames"],
                  "launches": launches["cold"]},
@@ -850,8 +864,133 @@ def sidecar_serve(b5, agg_op, have_grpc: bool) -> tuple[dict, object, dict]:
     return line, model, launches
 
 
+def sidecar_options(b5, agg_op, have_grpc: bool, serve_cold: dict, kind: str) -> dict:
+    """Phase 10 (module docstring). ``serve_cold`` is ``sidecar-serve``'s
+    default cold Propose, printed beside this one."""
+    import numpy as np
+    from ccx_torch import rungs
+    from ccx_torch.common import compilestats, costmodel
+    from ccx_torch.common.metrics import REGISTRY
+    from ccx_torch.model.snapshot import delta_encode, model_to_arrays, pack_arrays
+    from ccx_torch.search import incremental as inc
+    from ccx_torch.sidecar import server as sserver
+
+    goal_names, opts, _ = rungs.build_opts("B5", "target")
+    cold_opts = {**rungs.wire_options(opts), **OPTION_VALUES, "chunk_steps": OPTION_CHUNK_STEPS}
+    warm_opts = rungs.wire_options(dataclasses.replace(opts, incremental=rungs.steady_options()))
+    sidecar = sserver.OptimizerSidecar()
+    server = None
+    if have_grpc:
+        from ccx_torch.sidecar.client import SidecarClient
+
+        server, port = sserver.make_grpc_server(sidecar, "127.0.0.1:0")
+        server.start()
+        client = SidecarClient(f"127.0.0.1:{port}", retries=0)
+    else:
+        sserver.export_gauges()
+        client = InProcessClient(sidecar)
+    session = "chip-smoke-B5-options"
+    launches: dict = {}
+    costmodel.set_capture(True)
+    try:
+        with client:
+            arrays = model_to_arrays(b5)
+            client.put_snapshot(None, session, 1, packed=pack_arrays(arrays))
+            agg_op.LAUNCHES = 0
+
+            def propose(name, **kw):
+                before, records = agg_op.LAUNCHES, len(costmodel.records())
+                t0 = time.monotonic()
+                res = client.propose(session=session, goals=goal_names, columnar=True, **kw)
+                rt = time.monotonic() - t0
+                launches[name] = agg_op.LAUNCHES - before
+                check_result(res, f"sidecar-options {name}")
+                if launches[name] == 0:
+                    fail(f"sidecar-options {name} never launched the broker_aggregates kernel")
+                if "costModel" not in res:
+                    fail(f"sidecar-options {name}: the result carries no costModel")
+                return res, rt, len(costmodel.records()) - records
+
+            cold, cold_rt, captured = propose("cold", stream_result=True, **cold_opts)
+            repeat, repeat_rt, captured_repeat = propose("repeat", stream_result=False, **cold_opts)
+            rng = np.random.default_rng(DRIFT_SEED)
+            p_real = int(b5.partition_valid.sum())
+            loads = {f: arrays[f] for f in ("leader_load", "follower_load")}
+            new = rungs.drift_metrics(loads, rng, p_real, max(int(p_real * DRIFT), 1))
+            client.put_snapshot(None, session, 2, is_delta=True, base_generation=1,
+                                packed=pack_arrays(delta_encode(loads, new)))
+            warm, warm_rt, captured_warm = propose("warm", warm_start=True, base_generation=1,
+                                                   stream_result=True, **warm_opts)
+            path_launches = agg_op.LAUNCHES
+    finally:
+        costmodel.set_capture(False)
+        if server is not None:
+            server.stop(0)
+        inc.STORE.drop(session)
+    phases = cold["phaseSeconds"]
+    missing = [ph for ph in ("repair", "repair-join", "repair-concurrent", "anneal", "polish",
+                             "cost-capture") if ph not in phases]
+    if missing:
+        fail(f"sidecar-options: the cold Propose lacks the phases {missing}")
+    cm = cold["costModel"]
+    if cm["device"]["deviceKind"] != kind:
+        fail(f"sidecar-options: costModel names {cm['device']['deviceKind']!r}, not {kind!r}")
+    rows = {k: cm["programs"].get(k) for k in ("broker-aggregates", "sa-chunk", "polish-chunk")}
+    if not all(rows.values()):
+        fail(f"sidecar-options: costModel lacks program rows: {sorted(cm['programs'])}")
+    if not any("costModel" in c for c in cold["spanTree"]["children"]):
+        fail("sidecar-options: no phase span carries the cost rollup")
+    if captured == 0 or captured_repeat or captured_warm:
+        fail(f"sidecar-options: records added cold {captured}, repeat {captured_repeat}, "
+             f"warm {captured_warm} (the cold Propose alone must capture)")
+    for name, res in (("repeat", repeat), ("warm", warm)):
+        if "cost-capture" in res["phaseSeconds"]:
+            fail(f"sidecar-options: the {name} Propose ran a cost-capture phase")
+    if not warm.get("incremental", {}).get("warmStart"):
+        fail(f"sidecar-options: the window was not warm-started: {warm.get('incremental')}")
+    text = REGISTRY.render_prometheus()
+    gauges = {}
+    for name in ("compile_backend_compiles", "compile_backend_compile_secs",
+                 "compile_persistent_hits", "compile_persistent_misses",
+                 "cost_programs_captured", "cost_programs_pending",
+                 "cost_projected_device_seconds"):
+        line = next((ln for ln in text.splitlines() if ln.startswith(f"ccx_{name} ")), None)
+        if line is None:
+            fail(f"sidecar-options: /metrics lacks ccx_{name}")
+        gauges[name] = float(line.split()[1])
+    if gauges["compile_backend_compiles"] + gauges["compile_persistent_hits"] < 1:
+        fail(f"sidecar-options: the compile gauges show no kernel build: {gauges}")
+    polish = [0, 0, 0]
+    for seg in (cold.get("convergence") or {}).get("phases", {}).get("polish", ()):
+        polish = [a + b for a, b in zip(polish, seg["accepted"][-1])]
+    return {
+        "phase": "sidecar-options", "config": "B5", "rung": "target",
+        "options": {**OPTION_VALUES, "chunk_steps": OPTION_CHUNK_STEPS},
+        "transport": "grpc" if have_grpc else "in-process",
+        "cold": {"round_trip_seconds": cold_rt, "wall_seconds": cold["wallSeconds"],
+                 "phase_seconds": phases, "move_counters": cold["moveCounters"],
+                 "violations_after": violations(cold),
+                 "polish_accepted": dict(zip(("single", "replicaSwap", "leadershipSwap"), polish)),
+                 "launches": launches["cold"], "records_added": captured},
+        "default_cold": {"wall_seconds": serve_cold["wall_seconds"],
+                         "phase_seconds": serve_cold["phase_seconds"],
+                         "move_counters": serve_cold["move_counters"],
+                         "violations_after": serve_cold["violations_after"]},
+        "repeat": {"round_trip_seconds": repeat_rt, "wall_seconds": repeat["wallSeconds"],
+                   "launches": launches["repeat"], "records_added": captured_repeat},
+        "warm": {"round_trip_seconds": warm_rt, "wall_seconds": warm["wallSeconds"],
+                 "launches": launches["warm"], "records_added": captured_warm},
+        "cost_model": {"device": cm["device"], "coverage": cm["coverage"],
+                       "projected": cm["projected"], "programs": cm["programs"],
+                       "records": len(costmodel.records())},
+        "broker_aggregates_bound_ms": rows["broker-aggregates"].get("boundMsPerCall"),
+        "gauges": gauges, "compile": compilestats.snapshot(),
+        "launches": {"broker_aggregates": path_launches},
+    }
+
+
 def fleet_phase(dev, agg_op) -> dict:
-    """Phase 10 (module docstring)."""
+    """Phase 11 (module docstring)."""
     import threading
 
     from ccx_torch import rungs
@@ -1092,6 +1231,7 @@ def main() -> None:
     LOG.parent.mkdir(exist_ok=True)
     LOG.write_text("")
     sys.path.insert(0, str(ROOT))
+    from ccx_torch.device import ensure_responsive_backend
     from ccx_torch.goals.base import GoalConfig
     from ccx_torch.goals.stack import DEFAULT_GOAL_ORDER, evaluate_stack
     from ccx_torch.model import fixtures
@@ -1123,9 +1263,12 @@ def main() -> None:
         else:
             version = getattr(mod, "__version__", None) or getattr(mod, "version", None)
             packages[name] = ".".join(map(str, version)) if isinstance(version, tuple) else version
+    t = time.monotonic()
+    ensure_responsive_backend()
+    probe_s = time.monotonic() - t
     emit({"phase": "device", "kind": kind, "count": torch.cuda.device_count(),
           "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
-          "packages": packages})
+          "packages": packages, "probe_seconds": probe_s})
 
     # --- 2. build ------------------------------------------------------------
     t = time.monotonic()
@@ -1262,15 +1405,20 @@ def main() -> None:
     launches["ladder"] = line["launches"]["broker_aggregates"]
     emit(line)
 
-    # --- 9, 10. the sidecar serving path and the fleet --------------------------
+    # --- 9, 10, 11. the sidecar serving path, every option, the fleet ----------
     line, served, per_propose = sidecar_serve(b5, agg_op, packages["grpc"] is not None)
     launches["sidecar-serve"] = line["launches"]["broker_aggregates"]
+    emit(line)
+    line = sidecar_options(b5, agg_op, packages["grpc"] is not None, line["cold"], kind)
+    launches["sidecar-options"] = line["launches"]["broker_aggregates"]
+    options_bound_ms = line["broker_aggregates_bound_ms"]
+    per_options_propose = {k: line[k]["launches"] for k in ("cold", "repeat", "warm")}
     emit(line)
     line = fleet_phase(dev, agg_op)
     launches["fleet"] = line["launches"]["broker_aggregates"]
     emit(line)
 
-    # --- 11. result check: the card against the CPU ---------------------------
+    # --- 12. result check: the card against the CPU ---------------------------
     small = random_cluster(bench_spec("B3"), device=dev)
     host = model_from_arrays(model_arrays(small), small.num_topics, small.num_racks, "cpu")
     s_dev = evaluate_stack(small, cfg, DEFAULT_GOAL_ORDER)
@@ -1283,7 +1431,7 @@ def main() -> None:
           "cpu_equal": card_against_cpu(dev), "exchange_equal": exchange_on_card(dev),
           "warm_window_equal": warm_window_on_card(dev)})
 
-    # --- 12. B6's check and the kernel times, after the paths; the times
+    # --- 13. B6's check and the kernel times, after the paths; the times
     # last of the two (once torch.profiler has traced the card, every later
     # launch in the process pays for the tracing) ------------------------------
     t = time.monotonic()
@@ -1312,7 +1460,7 @@ def main() -> None:
           "plan": agg_op.plan(served), **serve_times})
     del served
 
-    # --- 13. profile -----------------------------------------------------------
+    # --- 14. profile -----------------------------------------------------------
     k = PROFILE_STEPS
     single = dataclasses.replace(opts.anneal, n_steps=k, p_swap=0.0)
     batched = dataclasses.replace(opts.anneal, n_steps=k)
@@ -1344,7 +1492,10 @@ def main() -> None:
               lambda: optimize(snap, cfg, goal_names, warm_opts,
                                warm_start=STORE.get(session)))}})
 
-    # --- 14. summary lines -----------------------------------------------------
+    # --- 15. summary lines -----------------------------------------------------
+    if options_bound_ms != times["bound_ms"]:
+        fail(f"the costModel's broker-aggregates bound {options_bound_ms} ms differs from the "
+             f"kernel line's {times['bound_ms']} ms")
     print(smi, flush=True)
     emit({"kernels": [{
         "name": "broker_aggregates", "route": "cuda",
@@ -1353,6 +1504,7 @@ def main() -> None:
         "launches": launches["target"], "launches_by_path": launches,
         "launches_per_warm_window": warm_per_window,
         "launches_per_sidecar_propose": per_propose,
+        "launches_per_options_propose": per_options_propose,
         "sidecar_path": {k: serve_times[k] for k in ("device_ms", "call_ms", "host_us")},
         "max_abs_err": max_err,
         "ms": times["call_ms"], "device_ms": times["device_ms"],

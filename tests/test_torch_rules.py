@@ -9,6 +9,7 @@ This file imports only torch and ``ccx_torch``, so on a machine with a card
 from __future__ import annotations
 
 import ast
+import re
 from pathlib import Path
 
 import pytest
@@ -62,6 +63,25 @@ def test_serving_modules_load_neither_jax_nor_the_jax_package_nor_grpc():
         "assert 'grpc' not in sys.modules, 'grpc imported at import time'\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT, timeout=120)
+
+
+#: names of TPU parts and their spec rows: no port source may carry a TPU's
+#: spec or number (the cost model's table holds NVIDIA cards only)
+TPU_SPEC = re.compile(r"(?i)tpu[-_ ]?v\d|\bv[4-7][ep]?\b.*\b(tpu|lite)\b|\bv5[ep]\b|v5 ?lite|\bv6e\b|trillium")
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_names_no_tpu_spec(path):
+    hits = [ln for ln in path.read_text().splitlines() if TPU_SPEC.search(ln)]
+    assert not hits, f"{path.relative_to(ROOT)} names a TPU spec: {hits[:3]}"
+
+
+def test_tpu_spec_scan_sees_the_jax_tables():
+    from ccx_torch.common import costmodel
+
+    text = (ROOT / "ccx" / "common" / "costmodel.py").read_text()
+    assert sum(bool(TPU_SPEC.search(ln)) for ln in text.splitlines()) >= 4
+    assert not any(TPU_SPEC.search(k) for k in costmodel.DEVICE_SPECS)
 
 
 def test_import_scan_sees_forbidden_imports(tmp_path):

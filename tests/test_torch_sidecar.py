@@ -5,9 +5,10 @@
 * The fixture requests (``tests/fixtures/sidecar/*_request*.bin``) are fed
   to a live JAX ``OptimizerSidecar`` and to the port's, in process: the
   PutSnapshot acks are byte-equal, Ping differs only in the device count,
-  and every Propose result has the JAX result's key set (less ``costModel``
-  and ``mesh``, which the port never fills), its goal order and its
-  input-side stats; both verify with zero hard violations. The proposals
+  and every Propose result has the JAX result's key set (less ``mesh``,
+  which the port never fills; ``costModel`` with the JAX block's keys), its
+  goal order and its input-side stats; both verify with zero hard
+  violations. The proposals
   themselves may differ: the random streams do.
 * Every Propose option key lands on the field the JAX sidecar lands it on.
 * The port's registry (device cache, grafts, eviction races, the narrow
@@ -41,7 +42,7 @@ from ccx_torch.sidecar.server import OptimizerSidecar, SnapshotRegistry, options
 
 FIXDIR = pathlib.Path(__file__).resolve().parent / "fixtures" / "sidecar"
 #: result keys the JAX sidecar fills from modules the port has not ported
-JAX_ONLY_KEYS = {"costModel", "mesh"}
+JAX_ONLY_KEYS = {"mesh"}
 GOALS = ("RackAwareGoal", "ReplicaDistributionGoal", "LeaderReplicaDistributionGoal")
 LEAN = dict(
     chains=4, steps=40, chunk_steps=20, moves_per_step=2, polish_max_iters=16,
@@ -188,6 +189,9 @@ def test_propose_results_agree(replays, name):
         assert all("progress" in f for f in frames[:-1]) and "result" in frames[-1]
     j, t = jframes[-1]["result"], tframes[-1]["result"]
     assert set(t) == set(j) - JAX_ONLY_KEYS
+    # the cost block's values are machine-dependent (volatile in JAX's
+    # golden fixtures too): its keys must agree
+    assert set(t["costModel"]) == set(j["costModel"])
     assert [g["goal"] for g in t["goalSummary"]] == [g["goal"] for g in j["goalSummary"]]
     for res in (j, t):
         assert res["verified"], res["verificationFailures"]
@@ -265,7 +269,7 @@ def test_every_option_key_lands_on_the_jax_field(monkeypatch):
             continue
         changed_t = {k: v for k, v in got.items() if v != base_t[k]}
         assert changed_t == changed_j, key
-    assert refused == {"repair_backend", "overlap_repair", "polish_swap_fraction"}
+    assert refused == set()
     with pytest.raises(ValueError, match="unknown options keys"):
         options_from_wire({"chians": 4}, False)
 

@@ -217,7 +217,7 @@ def test_observability_json_block():
         block = TRACER.observability_json(threads=True)
     assert set(block) == {
         "flightRecorder", "watchdogSeconds", "watchdogDumps", "traceSync", "activeSpans",
-        "lastSpanTree", "convergence", "threads",
+        "lastSpanTree", "convergence", "threads", "compile", "compileAttribution", "costModel",
     }
     assert any(s["span"] == "live" for st in block["activeSpans"].values() for s in st)
 

@@ -19,6 +19,7 @@ that ``.gitignore`` lists, and the two are timed in turns:
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import subprocess
 import sys
@@ -36,10 +37,15 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         sys.exit("time_torch_aggregates: no CUDA device is available")
-    # chip_smoke from this checkout, ccx_torch from the timed one
+    # chip_smoke and the bound's reckoning (the cost model, standard
+    # library at import) from this checkout, ccx_torch from the timed one
     sys.path.insert(0, str(REPO))
     from chip_smoke import TIME_FIXTURES, fixture_spec, time_kernel
 
+    spec = importlib.util.spec_from_file_location(
+        "_costmodel", REPO / "ccx_torch" / "common" / "costmodel.py")
+    costmodel = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(costmodel)
     sys.path.insert(0, str(args.root.resolve()))
     from ccx_torch.model import fixtures
     from ccx_torch.ops import broker_aggregates as agg_op
@@ -55,7 +61,7 @@ def main() -> None:
     for name in TIME_FIXTURES:
         m = fixtures.random_cluster(fixture_spec(name, fixtures), device=dev)
         print(json.dumps({"fixture": name, "P": m.P, "B": m.B, "T": m.num_topics,
-                          "D": m.D, **time_kernel(agg_op, m)}), flush=True)
+                          "D": m.D, **time_kernel(agg_op, m, costmodel=costmodel)}), flush=True)
         del m
 
 
