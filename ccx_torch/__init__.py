@@ -5,3 +5,5 @@ every public function. Entry points run on the CUDA device unless the caller
 passes ``device="cpu"``; with no card present and no explicit device they
 raise (``ccx_torch.device.resolve_device``).
 """
+
+__version__ = "0.1.0"

@@ -453,12 +453,27 @@ def hbm_watermark_bytes() -> int:
     return int(torch.cuda.max_memory_reserved())
 
 
+#: config-layer override of the fleet snapshot budget (the facade wires
+#: ``optimizer.fleet.snapshot.hbm.mb`` here; None = no override)
+_FLEET_HBM_MB: float | None = None
+
+
+def set_fleet_hbm_budget(mb: float | None) -> None:
+    """Config hook (``optimizer.fleet.snapshot.hbm.mb``): 0/None restores
+    the derived budget."""
+    global _FLEET_HBM_MB
+    _FLEET_HBM_MB = float(mb) if mb else None
+
+
 def fleet_snapshot_budget_bytes(explicit_mb: float | None = None) -> int:
-    """The device-memory budget with no ledger override: ``explicit_mb`` or
+    """The device-memory budget with no ledger override: ``explicit_mb``,
+    else the config hook's value (``set_fleet_hbm_budget``), else
     ``CCX_FLEET_HBM_MB`` when set, else half of (the card's capacity, from
     ``torch.cuda.mem_get_info``, minus ``hbm_watermark_bytes``), floor 64 MB;
     unlimited without a card (entries then live in host memory, which the
     ledger does not bound)."""
+    if explicit_mb is None:
+        explicit_mb = _FLEET_HBM_MB
     if explicit_mb is None:
         env = os.environ.get(ENV_FLEET_HBM_MB)
         explicit_mb = float(env) if env else None

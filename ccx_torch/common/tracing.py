@@ -202,6 +202,19 @@ class Tracer:
             except OSError:
                 pass
 
+    def configure(self, sync: bool | None = None,
+                  watchdog_seconds: float | None = None,
+                  path: str | None = None) -> None:
+        """Config-driven setup (facade construction). ``path``/knobs left
+        None keep their current (possibly env-armed) values."""
+        self._maybe_env()
+        if sync is not None:
+            self.sync = bool(sync)
+        if watchdog_seconds is not None:
+            self.set_watchdog(float(watchdog_seconds))
+        if path:
+            self.arm(path)
+
     def arm(self, path: str) -> None:
         """Open (append) the flight-recorder file and write the header
         record. Re-arming on the same path is a no-op; a new path closes
@@ -449,6 +462,26 @@ class Tracer:
                  "(convergence taps, per fleet job)",
         )
 
+    def healing_event(self, phase: str, **attrs) -> None:
+        """One structured healing-timeline record: ``phase`` is detected /
+        fired / recovered / forecast / fire-failed, attrs carry cluster,
+        family, cause, verb and the episode id. Rides the same JSONL stream
+        as spans and heartbeats, so a dead run's recording still names the
+        episode in progress."""
+        if self._fd is None and not self._listeners:
+            return
+        self._record({"ev": "healing", "phase": str(phase), **attrs})
+
+    def convergence_summary(self) -> dict:
+        """VIEWER-safe compact form: last energy + chunk per job, no
+        series, no span stacks."""
+        with self._lock:
+            return {
+                job: {**dq[-1], "beats": len(dq)}
+                for job, dq in self._energy.items()
+                if dq
+            }
+
     def convergence_timeline(self) -> dict:
         """Per-job heartbeat-energy series (last ENERGY_WINDOW chunks per
         job) — the /observability convergence section."""
@@ -622,6 +655,23 @@ class Tracer:
                 "path": self._path,
                 "records": self._records,
             }
+
+    def observability_summary(self) -> dict:
+        """VIEWER-safe subset for ``AnalyzerState.observability``: arming /
+        watchdog / sync state plus the last completed span tree, WITHOUT
+        the recorder's file path or live span/thread stacks — those are
+        USER-gated on the /observability endpoint."""
+        state = self.recorder_state()
+        return {
+            "flightRecorder": {
+                "armed": state["armed"], "records": state["records"],
+            },
+            "watchdogSeconds": self._watchdog_s,
+            "watchdogDumps": self._watchdog_dumps,
+            "traceSync": self.sync,
+            "lastSpanTree": self.last_tree(),
+            "convergence": self.convergence_summary(),
+        }
 
     def observability_json(self, threads: bool = False) -> dict:
         """The observability block: recorder + watchdog state, live span

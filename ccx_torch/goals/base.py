@@ -41,6 +41,37 @@ class GoalConfig:
     intra_disk_capacity_threshold: float = 0.8
     intra_disk_balance_gap: float = 0.2  # |disk util - broker avg util| allowed
 
+    @classmethod
+    def from_config(cls, config) -> "GoalConfig":
+        """Bridge from the service-level ``CruiseControlConfig`` key table
+        (``ccx_torch.config``) to the analyzer thresholds."""
+        return cls(
+            capacity_threshold=(
+                config["cpu.capacity.threshold"],
+                config["network.inbound.capacity.threshold"],
+                config["network.outbound.capacity.threshold"],
+                config["disk.capacity.threshold"],
+            ),
+            balance_threshold=(
+                config["cpu.balance.threshold"],
+                config["network.inbound.balance.threshold"],
+                config["network.outbound.balance.threshold"],
+                config["disk.balance.threshold"],
+            ),
+            low_utilization_threshold=(
+                config["cpu.low.utilization.threshold"],
+                config["network.inbound.low.utilization.threshold"],
+                config["network.outbound.low.utilization.threshold"],
+                config["disk.low.utilization.threshold"],
+            ),
+            leader_bytes_in_balance_threshold=config["leader.bytes.in.balance.threshold"],
+            replica_balance_threshold=config["replica.count.balance.threshold"],
+            leader_balance_threshold=config["leader.replica.count.balance.threshold"],
+            topic_replica_balance_threshold=config["topic.replica.count.balance.threshold"],
+            max_replicas_per_broker=float(config["max.replicas.per.broker"]),
+            min_topic_leaders_per_broker=config["min.topic.leaders.per.broker"],
+        )
+
 
 @dataclasses.dataclass(frozen=True)
 class GoalResult:

@@ -67,7 +67,7 @@ from ccx_torch.goals.base import GOAL_REGISTRY, GoalConfig
 from ccx_torch.goals.stack import DEFAULT_GOAL_ORDER, StackResult, evaluate_stack
 from ccx_torch.model.stats import ClusterModelStats, balancedness_score, cluster_model_stats
 from ccx_torch.model.tensor_model import TensorClusterModel
-from ccx_torch.proposals import ColumnarDiff, columnar_diff
+from ccx_torch.proposals import ColumnarDiff, ExecutionProposal, columnar_diff
 from ccx_torch.search.annealer import AnnealOptions, allows_inter_broker, anneal, hot_partition_list
 from ccx_torch.search.greedy import GreedyOptions, SwapPolishOptions, greedy_optimize, swap_polish
 from ccx_torch.search.incremental import ColdStartRequired, IncrementalOptions, WarmStart
@@ -205,6 +205,11 @@ class OptimizerResult:
         if not hasattr(self, "_stats_after"):
             self._stats_after = cluster_model_stats(self.model)
         return self._stats_after
+
+    @property
+    def proposals(self) -> list[ExecutionProposal]:
+        """Row view of the diff, built on first access."""
+        return self.diff.rows
 
     @property
     def num_replica_movements(self) -> int:

@@ -31,6 +31,12 @@ class ExecutionProposal:
     old_disks: tuple[int, ...] = ()
     new_disks: tuple[int, ...] = ()
 
+    @property
+    def data_to_move(self) -> int:
+        """Count of replicas that change broker (the executor's concurrency
+        caps are per movement)."""
+        return len(set(self.new_replicas) - set(self.old_replicas))
+
     def to_json(self) -> dict:
         out = {
             "topicPartition": {"topic": int(self.topic), "partition": int(self.partition)},

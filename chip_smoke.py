@@ -93,7 +93,30 @@ Phases, one JSON line each:
    Propose rebuilds and verifies (and gives one job's time alone), the pair
    runs again at dispatch width 8 for its seconds, and a job cancelled
    mid-anneal raises ``JobCancelled`` and leaves the run queue;
-12. result check — a small cluster's stack on the card held against the same
+12. service — the port's REST service over B5: a ``SimulatedCluster`` with
+   B5's brokers, racks and placement, its per-broker capacities in a
+   capacity file (``FileCapacityResolver``, named by the JAX package's
+   class path, which resolves under ``ccx_torch``), and a sampler here
+   (``B5Sampler``) replaying B5's per-partition leader loads; the port's
+   ``CruiseControl`` on the card and its ``CruiseControlApp`` on
+   ``127.0.0.1:0`` in this process. 4 metrics windows are sampled (seconds
+   each), the monitor's model is built (seconds) and its per-broker
+   replica and leader counts, from the kernel, must equal B5's. Through
+   the port's REST client: ``state``, ``load`` (its per-broker counts equal
+   the model's) and ``kafka_cluster_state`` answer 200; a dry-run
+   ``rebalance`` at the target rung, set through the façade's config keys
+   (the façade's options must equal ``rungs.build_opts("B5", "target")``),
+   long-polls its 202 and must verify with zero hard violations (its wall,
+   phase seconds and round trip beside ``main-path``'s wall); one
+   detection round (``anomaly_detector.run_once``: anomalies by type); one
+   more window, then ``proposals`` with ``ignore_proposal_cache``, which
+   must warm-start from the base the dry run banked and verify. Then a
+   second façade on the demo cluster of ``ccx_torch.main.build_demo_admin``
+   (topic demo-a skewed onto brokers 0 and 1) executes a rebalance, which
+   must drain. No ``jax`` or ``ccx`` module may have been loaded. Whether
+   the native host scatter ran (``ccx_torch.native.state()``) and the
+   card's memory peak;
+13. result check — a small cluster's stack on the card held against the same
    stack on the CPU, and three batched SA steps on a 64-broker cluster (3
    chains, 4 moves), then three swap-polish iterations, fed the same draws
    on the card and on the CPU: integer state, placement and grouped mirror
@@ -103,7 +126,7 @@ Phases, one JSON line each:
    mask and hot list (pressure stack within rtol 1e-5 / atol 1e-3) on both,
    and the CPU window's diff planned by the device loop on both gives the
    same waves;
-13. after the paths, which so run as they would alone: the same kernel
+14. after the paths, which so run as they would alone: the same kernel
    check on B6 (10k brokers / 1M partitions, whose shared rows need broker
    tiles), then the kernel times at B5, 4000 brokers and B6 (last, since
    torch.profiler's tracing slows every later launch of the process):
@@ -114,21 +137,22 @@ Phases, one JSON line each:
    version's time, and the same times on the model the sidecar built from
    the wire. The ``kernels`` line gives B5's: its ``ms`` is the call time
    ``call_ms``, beside ``device_ms`` and ``host_us``;
-14. profile — the device busy share and kernel count, under torch.profiler,
+15. profile — the device busy share and kernel count, under torch.profiler,
    of windows on the repaired B5 model: 10 single-move SA steps
    (``p_swap=0``) and 10 polish iterations, as measured before the swap
    engine, then 10 batched SA steps at ``p_swap=0.15`` and 10 swap-polish
    iterations, and one more warm window on the warm path's last snapshot;
    before them, how many times each of these calls (10 steps or
    iterations; one warm window) makes the host wait for the card;
-15. the card's ``nvidia-smi`` line, then the ``kernels`` line, then the
+16. the card's ``nvidia-smi`` line, then the ``kernels`` line, then the
    contract line ``{"ok": true, "device": {...}}`` last.
 
 Any failed check, an unverified result, remaining hard violations, a path
 that never proposed both kinds of swap (target) or launched a kernel of
 the path zero times exits non-zero. Each path (main, lean, warm,
-structural, ladder, sidecar serve, sidecar options, fleet) sets the launch count to 0 just
-before it runs and reads it just after. Needs one CUDA
+structural, ladder, sidecar serve, sidecar options, fleet, and the service's
+dry run, detection round, warm proposal and demo execution) sets the launch
+count to 0 just before it runs and reads it just after. Needs one CUDA
 device; run from the repository root: ``python3 chip_smoke.py``.
 """
 
@@ -183,6 +207,24 @@ FLEET_PRIORITIES, FLEET_BUDGET_MODELS, FLEET_WIDTHS = (0, 5), 1.5, (1, 8)
 FLEET_ANNEAL = dict(n_chains=8, n_steps=50, moves_per_step=2, chunk_steps=10)
 FLEET_POLISH = dict(max_iters=48, chunk_iters=16)
 FLEET_LEADER_ITERS = 32
+#: the service phase: metrics windows sampled before the dry run, their
+#: length, the target rung (``rungs.build_opts("B5", "target")``) as the
+#: façade's config keys (every other field of the rung is the façade's
+#: default; the phase checks the two option sets equal), and the demo
+#: cluster's search budget for its executed rebalance (its 6 brokers take
+#: the sequential SA engine: 8 x 100 steps took 24 s of a 30 s run on an
+#: H100, 8 x 200 steps with the config's default descents 65 s)
+SERVICE_WINDOWS, SERVICE_WINDOW_MS = 4, 60_000
+SERVICE_TARGET_KEYS = {
+    "optimizer.num.chains": 16, "optimizer.num.steps": 250, "optimizer.moves.per.step": 8,
+    "optimizer.chunk.steps": 250, "optimizer.polish.candidates": 256,
+    "optimizer.polish.max.iters": 150, "optimizer.topic.rebalance.rounds": 0,
+    "optimizer.leader.pass.max.iters": 100, "optimizer.portfolio.cold.greedy": False,
+    "optimizer.swap.polish.iters": 0, "optimizer.swap.polish.post.iters": 0,
+}
+DEMO_KEYS = {"optimizer.num.chains": 8, "optimizer.num.steps": 40,
+             "optimizer.polish.max.iters": 100, "optimizer.swap.polish.iters": 30,
+             "optimizer.swap.polish.post.iters": 30}
 #: the ladder phase: temperature rungs and steps per chunk
 LADDER_TEMPS, LADDER_CHUNK = 4, 25
 #: fixtures of the kernel-time phase: B5, a sparse wide cluster, and B6,
@@ -1122,6 +1164,314 @@ def fleet_phase(dev, agg_op) -> dict:
     return line
 
 
+class B5Sampler:
+    """The service phase's metric sampler (``metric.sampler.class``
+    ``__main__.B5Sampler``): replays the B5 fixture's per-partition leader
+    loads (``LOADS``, float64[P, 4] in ``Resource`` order) once per
+    window, and per-broker health metrics summed from the leaders. The
+    test recipe's synthetic sampler draws 1–5 % CPU a partition, which at
+    about 100 leaders a broker exceeds the static resolver's 100 % CPU on
+    every broker, so no B5 run could verify."""
+
+    LOADS = None
+
+    def __init__(self, config=None) -> None:
+        self.interval_ms = SERVICE_WINDOW_MS
+
+    def configure(self, config) -> None:
+        self.interval_ms = config["metric.sampling.interval.ms"]
+
+    def get_samples(self, metadata, assigned_partitions, start_ms, end_ms):
+        import numpy as np
+
+        from ccx_torch.monitor.metricdef import BROKER_METRIC_DEF
+        from ccx_torch.monitor.sampling.holders import (
+            BrokerMetricSample, PartitionMetricSample, metric_vector)
+        from ccx_torch.monitor.sampling.sampler import Samples
+
+        rows = self.LOADS.tolist()
+        times = range(int(start_ms), int(end_ms), int(self.interval_ms))
+        parts = metadata.partitions
+        psamples = [PartitionMetricSample(parts[p].leader, p, t, tuple(rows[p]))
+                    for p in assigned_partitions if parts[p].leader >= 0 for t in times]
+        bidx = metadata.broker_index()
+        leader = np.array([bidx.get(p.leader, -1) for p in parts])
+        led = leader >= 0
+        per_broker = [np.bincount(leader[led], weights=self.LOADS[led, r],
+                                  minlength=len(metadata.brokers)) for r in range(3)]
+        bsamples = []
+        for b in metadata.brokers:
+            if not b.alive:
+                continue
+            i = bidx[b.broker_id]
+            vec = metric_vector({
+                "ALL_TOPIC_BYTES_IN": per_broker[1][i], "ALL_TOPIC_BYTES_OUT": per_broker[2][i],
+                "BROKER_CPU_UTIL": min(per_broker[0][i] / 100.0, 1.0),
+                "BROKER_LOG_FLUSH_TIME_MS_MEAN": 5.0, "BROKER_LOG_FLUSH_TIME_MS_MAX": 10.0,
+                "UNDER_REPLICATED_PARTITIONS": 0.0,
+                "OFFLINE_LOG_DIRS": float(len(b.offline_disks)),
+            }, BROKER_METRIC_DEF)
+            bsamples.extend(BrokerMetricSample(b.broker_id, t, vec) for t in times)
+        return Samples(psamples, bsamples)
+
+    def close(self) -> None:
+        pass
+
+
+def b5_cluster(arrays: dict, n_partitions: int, n_brokers: int):
+    """A ``SimulatedCluster`` holding the fixture's brokers (racks, hosts,
+    liveness) and placement: topic ``t{k:03d}``'s partitions in fixture
+    order, which the metadata's (topic, partition) sort keeps, so the
+    monitor's partition axis is the fixture's."""
+    import numpy as np
+
+    from ccx_torch.common.metadata import TopicPartition
+    from ccx_torch.executor.admin import SimulatedCluster
+
+    sim = SimulatedCluster()
+    for b in range(n_brokers):
+        sim.add_broker(b, rack=f"rack-{int(arrays['broker_rack'][b]):02d}",
+                       host=f"host-{int(arrays['broker_host'][b])}")
+    topics = arrays["partition_topic"][:n_partitions]
+    for t, count in enumerate(np.bincount(topics)):
+        sim.create_topic(f"t{t:03d}", int(count), 1)
+    seen: dict[int, int] = {}
+    for p in range(n_partitions):
+        t = int(topics[p])
+        k = seen[t] = seen.get(t, -1) + 1
+        part = sim.partition(TopicPartition(f"t{t:03d}", k))
+        part.replicas = [int(b) for b in arrays["assignment"][p] if b >= 0]
+        part.leader = part.replicas[int(arrays["leader_slot"][p])]
+        part.dirs = [0] * len(part.replicas)
+    for b in range(n_brokers):
+        if not arrays["broker_alive"][b]:
+            sim.kill_broker(b)
+    sim._generation += 1
+    return sim
+
+
+def rest(client, method: str, endpoint: str, params: dict | None = None) -> tuple[list, dict, float]:
+    """``client.call`` with its HTTP statuses kept: (the first and the last
+    status and the number of polls, body, round-trip seconds); fails on a
+    status of 400 or more."""
+    t = time.monotonic()
+    status, body, headers = client._request(method, endpoint, params)
+    statuses = [status]
+    task = headers.get("User-Task-ID")
+    while status == 202:
+        if time.monotonic() - t > client.timeout_s:
+            fail(f"service: {method} {endpoint} still running after {client.timeout_s} s")
+        time.sleep(client.poll_interval_s)
+        status, body, headers = client._request(method, endpoint, None, task_id=task)
+        statuses.append(status)
+    if status >= 400:
+        fail(f"service: {method} {endpoint} answered {status}: {body}")
+    return ({"first": statuses[0], "last": status, "polls": len(statuses) - 1}, body,
+            time.monotonic() - t)
+
+
+def service_phase(dev, agg_op, name: str, spec, main_wall: float) -> dict:
+    """Phase 12 (module docstring). ``spec`` is config ``name``'s fixture
+    (B5 on the card); ``main_wall`` the main path's wall, printed beside
+    the REST rebalance's."""
+    import collections
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from ccx_torch import native, rungs
+    from ccx_torch.client import CruiseControlClient
+    from ccx_torch.config import CruiseControlConfig
+    from ccx_torch.executor.admin import SimulatedAdminClient
+    from ccx_torch.main import build_demo_admin
+    from ccx_torch.model.aggregates import broker_aggregates
+    from ccx_torch.model.fixtures import random_cluster
+    from ccx_torch.model.tensor_model import model_arrays
+    from ccx_torch.monitor.aggregator import ModelCompletenessRequirements
+    from ccx_torch.service.facade import CruiseControl
+    from ccx_torch.servlet.server import CruiseControlApp
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t = time.monotonic()
+    fixture = random_cluster(spec, device=dev)
+    arrays = model_arrays(fixture)
+    P, B = spec.n_partitions, spec.n_brokers
+    want = agg_op.broker_aggregates_plain(fixture)
+    want_counts = {"replicas": want.replica_count[:B].cpu().numpy(),
+                   "leaders": want.leader_count[:B].cpu().numpy()}
+    B5Sampler.LOADS = np.asarray(arrays["leader_load"][:, :P], np.float64).T.copy()
+    sim = b5_cluster(arrays, P, B)
+    out_dir = ROOT / "smoke_out" / "service"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    cap = arrays["broker_capacity"]
+    entry = lambda b, c: {"brokerId": str(b), "capacity": {  # noqa: E731
+        "CPU": str(c[0]), "NW_IN": str(c[1]), "NW_OUT": str(c[2]), "DISK": str(c[3])}}
+    (out_dir / "capacity.json").write_text(json.dumps({"brokerCapacities": [
+        entry(-1, cap[:, 0].tolist()), *(entry(b, cap[:, b].tolist()) for b in range(B))]}))
+    setup_s = time.monotonic() - t
+    props = {
+        "metric.sampler.class": "__main__.B5Sampler",
+        # a JAX package's class path, as an operator's properties file has
+        # it: it resolves under ccx_torch
+        "broker.capacity.config.resolver.class": "ccx.monitor.capacity.FileCapacityResolver",
+        "capacity.config.file": str(out_dir / "capacity.json"),
+        "sample.store.dir": str(out_dir / "samples"),
+        "partition.metrics.window.ms": SERVICE_WINDOW_MS, "num.partition.metrics.windows": 3,
+        "broker.metrics.window.ms": SERVICE_WINDOW_MS, "num.broker.metrics.windows": 3,
+        "metric.sampling.interval.ms": SERVICE_WINDOW_MS,
+        "webserver.http.address": "127.0.0.1", "webserver.http.port": 0,
+        "optimizer.incremental.enabled": True, **SERVICE_TARGET_KEYS,
+    }
+    cfg = CruiseControlConfig(props)
+    clock = {"now": 10 * SERVICE_WINDOW_MS}
+    cc = CruiseControl(cfg, admin=SimulatedAdminClient(sim), clock=lambda: clock["now"],
+                       executor_waiter=lambda ms: sim.tick(int(ms)), device=dev)
+    opts = cc._optimize_options()
+    _, rung_opts, _ = rungs.build_opts("B5", "target")
+    if dataclasses.replace(opts, incremental=rung_opts.incremental) != rung_opts:
+        fail("service: the façade's options from the config keys are not the target rung's")
+    cc.start_up(run_background_threads=False)
+    app = CruiseControlApp(cfg, cc, clock=lambda: clock["now"])
+    host, port = app.start()
+    client = CruiseControlClient(f"http://{host}:{port}", poll_interval_s=0.05, timeout_s=900)
+    try:
+        window_s = []
+        for _ in range(SERVICE_WINDOWS):
+            clock["now"] += SERVICE_WINDOW_MS
+            t = time.monotonic()
+            cc.load_monitor.sample_once()
+            window_s.append(time.monotonic() - t)
+        t = time.monotonic()
+        model, _, _ = cc.load_monitor.cluster_model(ModelCompletenessRequirements(1, 0.5))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        model_s = time.monotonic() - t
+        got = broker_aggregates(model)
+        counts = {"replicas": got.replica_count[:B].cpu().numpy(),
+                  "leaders": got.leader_count[:B].cpu().numpy()}
+        for k in counts:
+            if not np.array_equal(counts[k], want_counts[k]):
+                fail(f"service: the monitor's model has other per-broker {k} than the fixture")
+        del got, model
+
+        reads = {}
+        for endpoint in ("state", "load", "kafka_cluster_state"):
+            statuses, body, rt = rest(client, "GET", endpoint)
+            reads[endpoint] = {"statuses": statuses, "round_trip_s": rt}
+            if statuses["last"] != 200:
+                fail(f"service: {endpoint} answered {statuses}")
+            if endpoint == "state":
+                missing = {"MonitorState", "ExecutorState", "AnalyzerState",
+                           "AnomalyDetectorState"} - set(body)
+                if missing:
+                    fail(f"service: state lacks {missing}")
+            if endpoint == "load":
+                by_id = {b["Broker"]: b for b in body["brokers"]}
+                for k, field in (("replicas", "Replicas"), ("leaders", "Leaders")):
+                    if [by_id[b][field] for b in range(B)] != counts[k].tolist():
+                        fail(f"service: load's per-broker {k} differ from the model's")
+
+        agg_op.LAUNCHES = 0
+        statuses, dry, rt = rest(client, "POST", "rebalance", {"dryrun": True,
+                                                                  "reason": "chip smoke"})
+        dry_launches = agg_op.LAUNCHES
+        check_result(dry, "service dry-run rebalance")
+        if not dry["dryRun"] or not dry.get("incremental", {}).get("coldStart"):
+            fail(f"service: the dry run was not a cold dry run: {dry.get('incremental')}")
+
+        agg_op.LAUNCHES = 0
+        t = time.monotonic()
+        decisions = cc.anomaly_detector.run_once()
+        detect = {"seconds": time.monotonic() - t, "launches": agg_op.LAUNCHES,
+                  "anomalies": dict(collections.Counter(d["anomaly"]["type"] for d in decisions)),
+                  "actions": dict(collections.Counter(d["action"] for d in decisions))}
+
+        clock["now"] += SERVICE_WINDOW_MS
+        cc.load_monitor.sample_once()
+        agg_op.LAUNCHES = 0
+        w_statuses, warm, w_rt = rest(client, "GET", "proposals", {"ignore_proposal_cache": True})
+        warm_launches = agg_op.LAUNCHES
+        check_result(warm, "service warm proposal")
+        if not warm.get("incremental", {}).get("warmStart"):
+            fail(f"service: the proposal did not warm-start: {warm.get('incremental')}")
+    finally:
+        app.stop()
+        cc.shutdown()
+
+    # an executed rebalance on the demo cluster, skewed onto two brokers
+    demo = build_demo_admin()
+    for tp, part in demo.cluster._partitions.items():
+        if tp.topic == "demo-a":
+            part.replicas, part.leader, part.dirs = [0, 1], 0, [0, 0]
+    demo.cluster._generation += 1
+    dclock = {"now": 0}
+    dcfg = CruiseControlConfig({
+        "metric.sampler.class": "ccx_torch.monitor.sampling.sampler.SyntheticMetricSampler",
+        "broker.capacity.config.resolver.class": "ccx_torch.monitor.capacity.StaticCapacityResolver",
+        "sample.store.dir": str(out_dir / "demo_samples"),
+        "partition.metrics.window.ms": 1000, "num.partition.metrics.windows": 3,
+        "broker.metrics.window.ms": 1000, "num.broker.metrics.windows": 3,
+        "metric.sampling.interval.ms": 1000, "execution.progress.check.interval.ms": 50,
+        **DEMO_KEYS,
+    })
+    dcc = CruiseControl(dcfg, admin=demo, clock=lambda: dclock["now"],
+                        executor_waiter=lambda ms: demo.cluster.tick(int(ms)), device=dev)
+    dcc.start_up(run_background_threads=False)
+    try:
+        for _ in range(5):
+            dclock["now"] += 1000
+            dcc.load_monitor.sample_once()
+        agg_op.LAUNCHES = 0
+        t = time.monotonic()
+        wet = dcc.rebalance(dryrun=False, reason="chip smoke")
+        dcc.executor.await_completion(timeout_s=300)
+        exec_s = time.monotonic() - t
+        exec_launches = agg_op.LAUNCHES
+        check_result(wet, "service demo execution")
+        if not wet.get("executionStarted") or dcc.executor._thread.is_alive():
+            fail("service: the demo execution did not start or did not drain")
+        placed = {(p.tp.topic, p.tp.partition): list(p.replicas)
+                  for p in demo.describe_cluster().partitions}
+        per_broker = collections.Counter(b for r in placed.values() for b in r)
+        state = dcc.executor.state_json()["state"]
+        if state != "NO_TASK_IN_PROGRESS":
+            fail(f"service: the executor is {state} after the drain")
+    finally:
+        dcc.shutdown()
+
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "ccx"))
+    if bad:
+        fail(f"service: the port's service loaded {bad[:5]}")
+    return {
+        "phase": "service", "config": name, "brokers": B, "partitions": P,
+        "setup_seconds": setup_s, "sample_seconds_per_window": window_s,
+        "cluster_model_seconds": model_s, "counts_equal_fixture": True,
+        "reads": reads, "options_equal_target_rung": True,
+        "dry_run": {"statuses": statuses, "round_trip_s": rt, "wall_seconds": dry["wallSeconds"],
+                    "main_path_wall_seconds": main_wall, "phase_seconds": dry["phaseSeconds"],
+                    "replica_moves": dry["numReplicaMovements"],
+                    "leadership_moves": dry["numLeadershipMovements"],
+                    "violations_after": violations(dry), "launches": dry_launches},
+        "detection": detect,
+        "warm_proposal": {"statuses": w_statuses, "round_trip_s": w_rt,
+                          "wall_seconds": warm["wallSeconds"],
+                          "phase_seconds": warm["phaseSeconds"],
+                          "incremental": warm["incremental"], "launches": warm_launches},
+        "demo_execution": {"seconds": exec_s, "wall_seconds": wet["wallSeconds"],
+                           "phase_seconds": wet["phaseSeconds"],
+                           "replica_moves": wet["numReplicaMovements"],
+                           "replicas_per_broker": dict(sorted(per_broker.items())),
+                           "launches": exec_launches},
+        "native": native.state(),
+        "peak_device_bytes": torch.cuda.max_memory_allocated() if dev.type == "cuda" else None,
+        "launches": {"broker_aggregates": dry_launches + detect["launches"] + warm_launches
+                     + exec_launches},
+    }
+
+
 def exchange_on_card(dev) -> dict:
     """One exchange sweep on the card and on the CPU from the same cost
     vectors, temperatures and uniforms: the same permutation and counts."""
@@ -1337,7 +1687,7 @@ def main() -> None:
 
     # --- 4, 5. the two paths ----------------------------------------------
     cfg = GoalConfig()
-    launches = {}
+    launches, walls = {}, {}
     for phase, rung in PATHS:
         goal_names, opts, effort = build_opts("B5", rung)
         torch.cuda.reset_peak_memory_stats()
@@ -1345,6 +1695,7 @@ def main() -> None:
         res = optimize(b5, cfg, goal_names, opts)
         torch.cuda.synchronize()
         launches[rung] = agg_op.LAUNCHES
+        walls[rung] = res.wall_seconds
         before, after = res.stack_before.by_name(), res.stack_after.by_name()
         hard_after = float(res.stack_after.hard_violations)
         emit({
@@ -1418,7 +1769,19 @@ def main() -> None:
     launches["fleet"] = line["launches"]["broker_aggregates"]
     emit(line)
 
-    # --- 12. result check: the card against the CPU ---------------------------
+    # --- 12. the service layer: B5 behind the REST API -------------------------
+    line = service_phase(dev, agg_op, "B5", bench_spec("B5"), walls["target"])
+    launches["service"] = line["launches"]["broker_aggregates"]
+    per_service = {"dry_run": line["dry_run"]["launches"],
+                   "detection": line["detection"]["launches"],
+                   "warm_proposal": line["warm_proposal"]["launches"],
+                   "demo_execution": line["demo_execution"]["launches"]}
+    emit(line)
+    for what in ("dry_run", "detection", "warm_proposal", "demo_execution"):
+        if per_service[what] == 0:
+            fail(f"service: the {what} never launched the broker_aggregates kernel")
+
+    # --- 13. result check: the card against the CPU ---------------------------
     small = random_cluster(bench_spec("B3"), device=dev)
     host = model_from_arrays(model_arrays(small), small.num_topics, small.num_racks, "cpu")
     s_dev = evaluate_stack(small, cfg, DEFAULT_GOAL_ORDER)
@@ -1431,7 +1794,7 @@ def main() -> None:
           "cpu_equal": card_against_cpu(dev), "exchange_equal": exchange_on_card(dev),
           "warm_window_equal": warm_window_on_card(dev)})
 
-    # --- 13. B6's check and the kernel times, after the paths; the times
+    # --- 14. B6's check and the kernel times, after the paths; the times
     # last of the two (once torch.profiler has traced the card, every later
     # launch in the process pays for the tracing) ------------------------------
     t = time.monotonic()
@@ -1460,7 +1823,7 @@ def main() -> None:
           "plan": agg_op.plan(served), **serve_times})
     del served
 
-    # --- 14. profile -----------------------------------------------------------
+    # --- 15. profile -----------------------------------------------------------
     k = PROFILE_STEPS
     single = dataclasses.replace(opts.anneal, n_steps=k, p_swap=0.0)
     batched = dataclasses.replace(opts.anneal, n_steps=k)
@@ -1492,7 +1855,7 @@ def main() -> None:
               lambda: optimize(snap, cfg, goal_names, warm_opts,
                                warm_start=STORE.get(session)))}})
 
-    # --- 15. summary lines -----------------------------------------------------
+    # --- 16. summary lines -----------------------------------------------------
     if options_bound_ms != times["bound_ms"]:
         fail(f"the costModel's broker-aggregates bound {options_bound_ms} ms differs from the "
              f"kernel line's {times['bound_ms']} ms")
@@ -1505,6 +1868,8 @@ def main() -> None:
         "launches_per_warm_window": warm_per_window,
         "launches_per_sidecar_propose": per_propose,
         "launches_per_options_propose": per_options_propose,
+        "launches_per_service_rebalance": per_service["dry_run"],
+        "launches_per_service_verb": per_service,
         "sidecar_path": {k: serve_times[k] for k in ("device_ms", "call_ms", "host_us")},
         "max_abs_err": max_err,
         "ms": times["call_ms"], "device_ms": times["device_ms"],

@@ -28,7 +28,7 @@ FORBIDDEN = ("jax", "flax", "ccx")
 def _port_sources() -> list[Path]:
     return sorted((ROOT / "ccx_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tools" / "time_torch_aggregates.py",
-        ROOT / "tools" / "torch_lean_samples.py"]
+        ROOT / "tools" / "torch_lean_samples.py", ROOT / "tools" / "rehearse_service.py"]
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -372,3 +372,117 @@ def test_warm_quality_within_tolerance_of_from_scratch_downscaled_b5(where):
     base_trd = float(res_w.stack_before.by_name()["TopicReplicaDistributionGoal"][0])
     assert wa["TopicReplicaDistributionGoal"] <= base_trd * 1.05 + 16, (
         wa["TopicReplicaDistributionGoal"], base_trd)
+
+
+#: the JAX package's test recipe for a service, by its ``ccx.*`` class paths
+#: (an operator's properties file may carry them too)
+_CCX_RECIPE = (
+    '{"metric.sampler.class": "ccx.monitor.sampling.sampler.SyntheticMetricSampler", '
+    '"broker.capacity.config.resolver.class": "ccx.monitor.capacity.StaticCapacityResolver", '
+    '"partition.metrics.window.ms": 1000, "num.partition.metrics.windows": 3, '
+    '"broker.metrics.window.ms": 1000, "num.broker.metrics.windows": 3, '
+    '"metric.sampling.interval.ms": 1000}'
+)
+
+
+@pytest.mark.parametrize("source", ["properties-file", "ccx-recipe"])
+def test_booting_the_service_loads_neither_jax_nor_the_jax_package(source, tmp_path):
+    """The port's façade and REST app, booted in a fresh interpreter from
+    the repo's properties file or from a recipe naming ``ccx.*`` classes,
+    answer ``state`` and load no ``jax`` and no ``ccx.*`` module."""
+    import subprocess
+    import sys
+
+    if source == "properties-file":
+        make_cfg = ("cfg = CruiseControlConfig.from_properties_file("
+                    "'config/cruisecontrol.properties')\n")
+    else:
+        make_cfg = f"cfg = CruiseControlConfig({_CCX_RECIPE})\n"
+    code = (
+        "import sys\n"
+        "from ccx_torch.config import CruiseControlConfig\n"
+        "from ccx_torch.main import build_demo_admin\n"
+        "from ccx_torch.service.facade import CruiseControl\n"
+        "from ccx_torch.servlet.server import CruiseControlApp\n"
+        "from ccx_torch.client import CruiseControlClient\n"
+        + make_cfg +
+        f"cfg = cfg.with_overrides(**{{'sample.store.dir': {str(tmp_path)!r},\n"
+        "                             'webserver.http.port': 0})\n"
+        "cc = CruiseControl(cfg, admin=build_demo_admin(), device='cpu')\n"
+        "cc.start_up(run_background_threads=False)\n"
+        "cc.load_monitor.sample_once()\n"
+        "app = CruiseControlApp(cfg, cc)\n"
+        "host, port = app.start()\n"
+        "try:\n"
+        "    st = CruiseControlClient(f'http://{host}:{port}').state()\n"
+        "finally:\n"
+        "    app.stop(); cc.shutdown()\n"
+        "assert st['MonitorState']['state'] == 'RUNNING', st\n"
+        "assert type(cc.load_monitor.capacity_resolver).__module__.startswith('ccx_torch.')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'ccx'))\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT, timeout=300)
+
+
+def test_resolve_class_maps_the_jax_packages_paths_to_the_port():
+    from ccx_torch.config.definition import ConfigException, resolve_class
+    from ccx_torch.monitor.capacity import StaticCapacityResolver
+
+    assert resolve_class("ccx.monitor.capacity.StaticCapacityResolver") is StaticCapacityResolver
+    assert resolve_class("ccx_torch.monitor.capacity.StaticCapacityResolver") is (
+        StaticCapacityResolver)
+    with pytest.raises(ConfigException):  # no counterpart in the port
+        resolve_class("ccx.parallel.sharding.program_cache_stats")
+
+
+def test_service_main_without_a_card_raises_and_serves_nothing(monkeypatch):
+    from ccx_torch import main as main_mod
+
+    served = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(main_mod.CruiseControlApp, "start", lambda self: served.append(self))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main_mod.main([])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main_mod.main(["--device", "cuda"])
+    assert not served
+
+
+def test_python_m_ccx_torch_on_the_cpu_serves_state(tmp_path):
+    """``python -m ccx_torch PROPS --device cpu`` serves the REST API over
+    the demo cluster and stops on SIGTERM."""
+    import json
+    import re
+    import signal
+    import subprocess
+    import sys
+    import urllib.request
+
+    props = tmp_path / "cc.properties"
+    props.write_text(
+        "metric.sampler.class=ccx.monitor.sampling.sampler.SyntheticMetricSampler\n"
+        "broker.capacity.config.resolver.class=ccx.monitor.capacity.StaticCapacityResolver\n"
+        f"sample.store.dir={tmp_path / 'samples'}\n"
+        "webserver.http.address=127.0.0.1\nwebserver.http.port=0\n")
+    proc = subprocess.Popen([sys.executable, "-m", "ccx_torch", str(props), "--device", "cpu"],
+                            cwd=ROOT, stderr=subprocess.PIPE, text=True)
+    try:
+        url = None
+        for line in proc.stderr:
+            m = re.search(r"listening on (http://\S+/kafkacruisecontrol/state) \(device cpu\)",
+                          line)
+            if m:
+                url = m.group(1)
+                break
+        assert url, "the service never said where it listens"
+        with urllib.request.urlopen(url, timeout=60) as resp:
+            assert resp.status == 200
+            assert "MonitorState" in json.loads(resp.read())
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        proc.stderr.close()
