@@ -33,8 +33,9 @@ Seams (the serving stack's failure surface):
                        (``SnapshotRegistry.put``)
 ``placement.bank``     warm-base banking into the ``PlacementStore``
                        (``incremental.remember``)
-``device.diff``        the columnar diff (named for spec compatibility;
-                       the port's diff has no seam)
+``device.diff``        the columnar diff (``proposals.columnar_diff``);
+                       the Propose fails with a retryable internal error
+                       (the JAX package degrades to a numpy diff instead)
 ``rpc.frame``          every Propose stream frame at the gRPC edge
                        (``server.propose_stream``)
 ``scheduler.grant``    chunk-dispatch grant acquisition

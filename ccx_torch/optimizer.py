@@ -16,14 +16,17 @@ With ``warm_start`` (a ``ccx_torch.search.incremental.WarmStart``) and
 ``opts.incremental`` armed, ``optimize`` runs the warm pipeline instead:
 the previous placement grafted onto the snapshot's metrics, a short
 drift-targeted descent (repair and a plateau-terminated warm SA first when
-the drift holds structural damage), preferred-leader finalize, the minimal
-diff and the same verification; a warm result never ships lexicographically
-behind its own base, nor unverified while its base verifies. When the base
-cannot be applied it falls back to the cold pipeline and says why in
-``OptimizerResult.incremental``. With ``plan_enabled`` every result carries
-a wave-scheduled movement plan of its diff (``ccx_torch.search.movement``),
-and ``plan_cost_tier`` breaks a lexicographic tie in the portfolio toward
-the placement that moves fewer bytes.
+the drift holds structural damage), preferred-leader finalize, the cold
+pipeline's repair retries at the warm budget when a hard violation is left
+(``incremental.repair_retries``, which the JAX package's warm path lacks),
+the minimal diff and the same verification; a warm result never ships
+lexicographically behind its own base, nor unverified while its base
+verifies. When the base cannot be applied it falls back to the cold
+pipeline and says why in ``OptimizerResult.incremental``. With
+``plan_enabled`` every result carries a wave-scheduled movement plan of its
+diff (``ccx_torch.search.movement``), and ``plan_cost_tier`` breaks a
+lexicographic tie in the portfolio toward the placement that moves fewer
+bytes.
 
 Every call runs under a tracing root span (``ccx_torch.common.tracing``):
 each stage is a child span, chunk heartbeats attach to it, and the
@@ -741,6 +744,17 @@ def _optimize_warm(
     if stack_after is None:
         with phase("warm-finish"):
             stack_after, bank_press = inc.warm_finish(model, cfg, goal_names)
+    if not opts.incremental.leadership_only and float(stack_after.hard_violations) > 0:
+        # a structural window's search kept a hard violation: the cold
+        # pipeline's repair retries, at the warm budget (not in the JAX
+        # package's warm path), shipped only when they clear every one; a
+        # leadership-only verb keeps its replicas in place
+        with phase("repair-retry"):
+            retried = inc.repair_retries(model, cfg, goal_names, opts.incremental, opts,
+                                         tally=run.tally)
+        if retried is not None:
+            model, stack_after, bank_press, n_retry, info["repairRetries"] = retried
+            n_engine_moves += n_retry
     # never ship a warm result significantly lex-behind its own (repaired)
     # base: the base is then the better proposal
     if inc._significantly_lex_worse(stack_after, stack_before):

@@ -5,7 +5,9 @@ The reference's ``AnalyzerUtils.getDiff`` turns the optimized model into
 executor. Here the canonical diff is columnar (``ColumnarDiff``): flat int32
 numpy columns, one row per changed partition. ``columnar_diff`` computes the
 change mask and the compaction on the models' device and moves only the
-changed rows to the host; the row view is built lazily on request.
+changed rows to the host; the row view is built lazily on request. Armed,
+the ``device.diff`` fault seam fails the diff, and with it the Propose; the
+port has no host diff to degrade to.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ccx_torch.common.faults import FAULTS
 from ccx_torch.model.tensor_model import TensorClusterModel
 
 
@@ -123,6 +126,10 @@ def columnar_diff(before: TensorClusterModel, after: TensorClusterModel) -> Colu
     """The changed partitions of ``after`` against ``before``: mask and
     compaction on the models' device, then one host transfer per column of
     the changed rows only."""
+    if FAULTS.armed:
+        # chaos seam: the injected fault ends the Propose with a retryable
+        # internal error, and the client's retry diffs again
+        FAULTS.hit("device.diff")
     a0, a1 = before.assignment, after.assignment
     l0, l1 = before.leader_slot, after.leader_slot
     d0, d1 = before.replica_disk, after.replica_disk

@@ -15,9 +15,10 @@ budget and the pipeline stages:
   portfolio) at the largest effort; ``custom`` equals ``lean``'s stages
   with ``full``'s effort and the portfolio on.
 
-``steady_options`` is the bench's steady-state warm budget,
-``drift_metrics`` its drift rule for one metrics window, and
-``wire_options`` a rung's options as a sidecar Propose's ``options`` map.
+``steady_options`` is the bench's steady-state warm budget
+(``steady_wire_options`` its Propose keys), ``drift_metrics`` its drift
+rule for one metrics window, and ``wire_options`` a rung's options as a
+sidecar Propose's ``options`` map.
 
 The bench's environment overrides (chains, steps, moves, polish iterations,
 the portfolio switch) and its device mesh are not part of this copy.
@@ -79,15 +80,20 @@ def build_opts(name: str, rung: str) -> tuple[tuple[str, ...], OptimizeOptions, 
         run_cold_greedy=rung in ("full", "custom"),
         **stages,
     )
-    effort = {
-        "chains": n_chains, "steps": n_steps, "moves": moves, "polish_iters": polish_iters,
+    return goal_names, opts, effort_of(opts)
+
+
+def effort_of(opts: OptimizeOptions) -> dict:
+    """The bench's ``effort`` block of a run's options."""
+    return {
+        "chains": opts.anneal.n_chains, "steps": opts.anneal.n_steps,
+        "moves": opts.anneal.moves_per_step, "polish_iters": opts.polish.max_iters,
         "portfolio": opts.run_cold_greedy,
         "trd_rounds": opts.topic_rebalance_rounds,
         "swap_polish": [opts.swap_polish_iters, opts.swap_polish_post_iters],
         "swap_coupling": opts.anneal.swap_coupling,
         "p_swap": opts.anneal.p_swap,
     }
-    return goal_names, opts, effort
 
 
 def steady_options(enabled: bool = True) -> IncrementalOptions:
@@ -101,6 +107,19 @@ def steady_options(enabled: bool = True) -> IncrementalOptions:
         warm_steps=100, warm_chunk_steps=25, warm_chains=2,
         warm_moves_per_step=8, plateau_window=1,
     )
+
+
+def steady_wire_options() -> dict:
+    """``steady_options()`` as a warm Propose's ``options`` keys (the
+    bench's ``_steady_options``); a warm request sends them over the cold
+    rung's ``wire_options``."""
+    w = steady_options()
+    return {
+        "warm_swap_iters": w.warm_swap_iters, "warm_swap_patience": w.warm_swap_patience,
+        "warm_swap_candidates": w.warm_swap_candidates, "warm_steps": w.warm_steps,
+        "warm_chunk_steps": w.warm_chunk_steps, "warm_chains": w.warm_chains,
+        "warm_moves": w.warm_moves_per_step, "plateau_window": w.plateau_window,
+    }
 
 
 def drift_metrics(arrays: dict, rng, p_real: int, n_drift: int) -> dict:

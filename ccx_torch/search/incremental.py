@@ -601,6 +601,40 @@ def reoptimize(
     return (model, stack_before, stack_after, search, info, wm, bank_pressure, n_engine_moves)
 
 
+def repair_retries(model: TensorClusterModel, cfg: GoalConfig, goal_names: tuple[str, ...],
+                   iopts: IncrementalOptions, base_opts, tally=None):
+    """The cold pipeline's repair retries at the warm budget, for a warm
+    result that kept a hard violation: up to ``max_repair_rounds - 1``
+    rounds of ``hard_repair`` and the rung's polish for ``warm_swap_iters``
+    iterations (patience ``warm_swap_patience``). The structural path's
+    repair, warm SA and swap polish can leave an overload that the swap
+    polish's candidates miss (at B5 the hot-skew family's x8 window keeps
+    one network-outbound overload after the warm SA); the polish scores the
+    offending broker's moves directly. Returns ``(model, stack, pressure,
+    moves, rounds)`` of the first round whose placement has no hard
+    violation, or None when no round reaches that (the caller then ships
+    its own result)."""
+    from ccx_torch.search.greedy import greedy_optimize
+    from ccx_torch.search.repair import finalize_preferred_leaders, hard_repair
+
+    polish = dataclasses.replace(
+        base_opts.polish, max_iters=max(iopts.warm_swap_iters, 1),
+        patience=max(iopts.warm_swap_patience, 1),
+    )
+    moves = 0
+    for rounds in range(1, base_opts.max_repair_rounds):
+        model, n_repair = hard_repair(model, cfg, goal_names)
+        res = greedy_optimize(model, cfg, goal_names, polish)
+        if tally is not None:
+            tally(res, "repair-retry")
+        model, _, _ = finalize_preferred_leaders(res.model, cfg, goal_names, None, reevaluate=False)
+        moves += n_repair + res.n_moves
+        stack, pressure = warm_finish(model, cfg, goal_names)
+        if float(stack.hard_violations) <= 0:
+            return model, stack, pressure, moves, rounds
+    return None
+
+
 def _significantly_lex_worse(after: StackResult, before: StackResult) -> bool:
     """True when ``after``'s (hard violations, cost vector) is significantly
     lexicographically worse than ``before``'s, under the convergence

@@ -826,6 +826,23 @@ def make_grpc_server(sidecar: OptimizerSidecar | None = None,
     return server, port
 
 
+def freeze_gc_steady_state() -> int:
+    """Steady-state serving posture: collect once, then ``gc.freeze()`` the
+    surviving heap into the permanent generation. A long-lived sidecar holds
+    a large static object graph (modules, the kernel library's bindings,
+    the resident models' wrappers) that every full cycle collection would
+    traverse again; frozen objects are still freed by reference counting,
+    only the cycle collector skips them. Freezes are additive, so calling it
+    again is safe: ``main`` calls it once the server has started, and the
+    bench runs before their clean baseline. Returns the number of objects
+    frozen (``gc.get_freeze_count()``)."""
+    import gc
+
+    gc.collect()
+    gc.freeze()
+    return gc.get_freeze_count()
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -873,7 +890,9 @@ def main(argv=None) -> int:
     )
     server, port = make_grpc_server(sidecar, address=args.address, max_workers=args.workers)
     server.start()
-    log.info("optimizer sidecar listening on port %s (device %s)", port, sidecar.device)
+    frozen = freeze_gc_steady_state()
+    log.info("optimizer sidecar listening on port %s (device %s; %d objects frozen)",
+             port, sidecar.device, frozen)
     server.wait_for_termination()
     return 0
 

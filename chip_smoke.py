@@ -116,7 +116,28 @@ Phases, one JSON line each:
    must drain. No ``jax`` or ``ccx`` module may have been loaded. Whether
    the native host scatter ran (``ccx_torch.native.state()``) and the
    card's memory peak;
-13. result check — a small cluster's stack on the card held against the same
+13. scenario — one more sidecar on ``127.0.0.1:0`` and one cold Propose
+   of B5 at the target rung (``ccx_torch.bench.runs.serve_cold``), then the
+   scenario corpus (``runs.run_scenario``, the JAX bench's ``--scenario``)
+   from its applied result: the five families of
+   ``ccx_torch.bench.scenarios`` (broker failures, disk evacuation, hot
+   skew, a broker wave, partition growth) x 4 cumulative windows, seed 7,
+   each a delta PutSnapshot and a warm Propose at the steady rung, after
+   two prewarm windows and a clean steady baseline (2 + 3 windows). It
+   fails unless the run is verified (every window verified and
+   warm-started, every family inside its envelope, the clean baseline ok,
+   a verb family recovering within 2x the clean p50), every family
+   launched the kernel, and no kernel build fell in the measured loop;
+14. chaos — the chaos run (``runs.run_chaos``, the JAX bench's
+   ``--chaos``) from the same cold result, on a session of its own: 2 + 3
+   clean drift windows, then 7 windows (one cycle of the seven seams of
+   ``CHAOS_SCENARIOS``) each with one fault armed, through the retrying
+   client, then a disarmed epilogue. It fails unless the run is verified
+   (every window recovered, no stuck job, no leaked session, bounded
+   recovery walls, the epilogue warm and verified), every seam fired,
+   every faulted window launched the kernel, and no kernel build fell in a
+   measured loop;
+15. result check — a small cluster's stack on the card held against the same
    stack on the CPU, and three batched SA steps on a 64-broker cluster (3
    chains, 4 moves), then three swap-polish iterations, fed the same draws
    on the card and on the CPU: integer state, placement and grouped mirror
@@ -126,7 +147,7 @@ Phases, one JSON line each:
    mask and hot list (pressure stack within rtol 1e-5 / atol 1e-3) on both,
    and the CPU window's diff planned by the device loop on both gives the
    same waves;
-14. after the paths, which so run as they would alone: the same kernel
+16. after the paths, which so run as they would alone: the same kernel
    check on B6 (10k brokers / 1M partitions, whose shared rows need broker
    tiles), then the kernel times at B5, 4000 brokers and B6 (last, since
    torch.profiler's tracing slows every later launch of the process):
@@ -137,22 +158,23 @@ Phases, one JSON line each:
    version's time, and the same times on the model the sidecar built from
    the wire. The ``kernels`` line gives B5's: its ``ms`` is the call time
    ``call_ms``, beside ``device_ms`` and ``host_us``;
-15. profile — the device busy share and kernel count, under torch.profiler,
+17. profile — the device busy share and kernel count, under torch.profiler,
    of windows on the repaired B5 model: 10 single-move SA steps
    (``p_swap=0``) and 10 polish iterations, as measured before the swap
    engine, then 10 batched SA steps at ``p_swap=0.15`` and 10 swap-polish
    iterations, and one more warm window on the warm path's last snapshot;
    before them, how many times each of these calls (10 steps or
    iterations; one warm window) makes the host wait for the card;
-16. the card's ``nvidia-smi`` line, then the ``kernels`` line, then the
+18. the card's ``nvidia-smi`` line, then the ``kernels`` line, then the
    contract line ``{"ok": true, "device": {...}}`` last.
 
 Any failed check, an unverified result, remaining hard violations, a path
 that never proposed both kinds of swap (target) or launched a kernel of
 the path zero times exits non-zero. Each path (main, lean, warm,
-structural, ladder, sidecar serve, sidecar options, fleet, and the service's
-dry run, detection round, warm proposal and demo execution) sets the launch
-count to 0 just before it runs and reads it just after. Needs one CUDA
+structural, ladder, sidecar serve, sidecar options, fleet, the service's
+dry run, detection round, warm proposal and demo execution, scenario and
+chaos) sets the launch count to 0 just before it runs and reads it just
+after. Needs one CUDA
 device; run from the repository root: ``python3 chip_smoke.py``.
 """
 
@@ -225,6 +247,11 @@ SERVICE_TARGET_KEYS = {
 DEMO_KEYS = {"optimizer.num.chains": 8, "optimizer.num.steps": 40,
              "optimizer.polish.max.iters": 100, "optimizer.swap.polish.iters": 30,
              "optimizer.swap.polish.post.iters": 30}
+#: the scenario and chaos phases: windows per family and the corpus seed
+#: (the optimizer.scenario.* defaults), and faulted windows: one cycle of
+#: the seven seams (two cycles took the script to 970 s on an H100, near
+#: its 1000 s budget; ``python -m ccx_torch.bench --chaos`` keeps 14)
+SCENARIO_WINDOWS, SCENARIO_SEED, CHAOS_WINDOWS = 4, 7, 7
 #: the ladder phase: temperature rungs and steps per chunk
 LADDER_TEMPS, LADDER_CHUNK = 4, 25
 #: fixtures of the kernel-time phase: B5, a sparse wide cluster, and B6,
@@ -1472,6 +1499,89 @@ def service_phase(dev, agg_op, name: str, spec, main_wall: float) -> dict:
     }
 
 
+def scenario_and_chaos(dev, agg_op) -> tuple[dict, dict]:
+    """Phases 13 and 14 (module docstring): one sidecar and one cold Propose
+    of B5 at the target rung (``ccx_torch.bench.runs.serve_cold``), then the
+    scenario corpus and the chaos run from its applied result. Returns their
+    two lines."""
+    import torch
+
+    from ccx_torch.bench import runs
+    from ccx_torch.common import costmodel
+
+    costmodel.set_capture(True)
+    served = runs.serve_cold("B5", dev)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        agg_op.LAUNCHES = 0
+        t = time.monotonic()
+        scen = runs.run_scenario("B5", windows=SCENARIO_WINDOWS, seed=SCENARIO_SEED,
+                                 served=served)
+        torch.cuda.synchronize()
+        scen.update(phase="scenario", phase_seconds=time.monotonic() - t,
+                    path_launches=agg_op.LAUNCHES,
+                    peak_device_bytes=torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        agg_op.LAUNCHES = 0
+        t = time.monotonic()
+        chaos = runs.run_chaos("B5", n_iters=CHAOS_WINDOWS, served=served)
+        torch.cuda.synchronize()
+        chaos.update(phase="chaos", phase_seconds=time.monotonic() - t,
+                     path_launches=agg_op.LAUNCHES,
+                     peak_device_bytes=torch.cuda.max_memory_allocated())
+    finally:
+        served.close()
+        costmodel.set_capture(False)
+    for line in (scen, chaos):
+        line["cold_propose"] = {"seconds": served.cold_s, "launches": served.cold_launches,
+                                "wall_seconds": served.cold_res["wallSeconds"],
+                                "phase_seconds": served.cold_res["phaseSeconds"]}
+    return scen, chaos
+
+
+def check_scenario(line: dict) -> None:
+    """Phase 13's gates: the run's own (``verified``), then a launch of the
+    kernel in every family and no kernel build in the measured loop."""
+    if len(line["families"]) != 5 or line["n_windows"] != SCENARIO_WINDOWS:
+        fail(f"scenario: ran {list(line['families'])} x {line['n_windows']} windows")
+    for fam, f in line["families"].items():
+        if f["launches"]["broker_aggregates"] == 0:
+            fail(f"scenario: family {fam} never launched the broker_aggregates kernel")
+    if not line["zero_measured_loop_compiles"]:
+        fail(f"scenario: a kernel build fell inside the measured loop: {line['compile_cache']}")
+    if not line["verified"]:
+        bad = {fam: [(w["label"], w["verified"], w["warm"], w["envelope_failures"],
+                      w["verification_failures"]) for w in f["window_detail"]
+                     if not (w["verified"] and w["warm"]) or w["envelope_failures"]]
+               for fam, f in line["families"].items()}
+        fail(f"scenario: not verified: clean {line['clean']}, warm-recovered "
+             f"{line['warm_recovered_families']} (limit {line['warm_limit_s']} s), windows {bad}")
+
+
+def check_chaos(line: dict, scenarios) -> None:
+    """Phase 14's gates: the run's own (``verified``), then every seam of the
+    schedule fired, a launch of the kernel in every faulted window and no
+    kernel build in its measured loops."""
+    seams = {rule.split("@")[0] for spec, _ in scenarios for rule in spec.split(";")}
+    unfired = sorted(seams - {k for k, n in line["faults_fired"].items() if n > 0})
+    if unfired:
+        fail(f"chaos: seams that never fired: {unfired}")
+    for i, w in enumerate(line["windows"]):
+        if w["launches"] == 0:
+            fail(f"chaos: faulted window {i + 1} ({w['scenario']}) never launched the "
+                 "broker_aggregates kernel")
+    builds = (line["compile_cache"]["faulted"]["backend_compiles"]
+              + line["disarmed"]["compile_cache"]["backend_compiles"])
+    if builds:
+        fail(f"chaos: {builds} kernel builds fell inside the measured loops")
+    if not line["verified"]:
+        fail(f"chaos: not verified: recovered {line['recovered']}, leaks_ok "
+             f"{line['leaks_ok']}, stuck {line['scheduler']['stuckJobs']}, bounded "
+             f"{line['recovery']['bounded']}, disarmed {line['disarmed']}, windows "
+             f"{[(w['scenario'], w['wall_s'], w['recovered'], w.get('error')) for w in line['windows']]}")
+
+
 def exchange_on_card(dev) -> dict:
     """One exchange sweep on the card and on the CPU from the same cost
     vectors, temperatures and uniforms: the same permutation and counts."""
@@ -1781,7 +1891,21 @@ def main() -> None:
         if per_service[what] == 0:
             fail(f"service: the {what} never launched the broker_aggregates kernel")
 
-    # --- 13. result check: the card against the CPU ---------------------------
+    # --- 13, 14. the scenario corpus and the chaos run through the sidecar -----
+    from ccx_torch.bench.runs import CHAOS_SCENARIOS
+
+    scen, chaos = scenario_and_chaos(dev, agg_op)
+    launches["scenario"] = scen["path_launches"]
+    launches["chaos"] = chaos["path_launches"]
+    per_family = {fam: f["launches"]["broker_aggregates"] for fam, f in scen["families"].items()}
+    per_chaos_window = [w["launches"] for w in chaos["windows"]]
+    emit(scen)
+    check_scenario(scen)
+    emit(chaos)
+    check_chaos(chaos, CHAOS_SCENARIOS)
+    del scen, chaos
+
+    # --- 15. result check: the card against the CPU ---------------------------
     small = random_cluster(bench_spec("B3"), device=dev)
     host = model_from_arrays(model_arrays(small), small.num_topics, small.num_racks, "cpu")
     s_dev = evaluate_stack(small, cfg, DEFAULT_GOAL_ORDER)
@@ -1794,7 +1918,7 @@ def main() -> None:
           "cpu_equal": card_against_cpu(dev), "exchange_equal": exchange_on_card(dev),
           "warm_window_equal": warm_window_on_card(dev)})
 
-    # --- 14. B6's check and the kernel times, after the paths; the times
+    # --- 16. B6's check and the kernel times, after the paths; the times
     # last of the two (once torch.profiler has traced the card, every later
     # launch in the process pays for the tracing) ------------------------------
     t = time.monotonic()
@@ -1823,7 +1947,7 @@ def main() -> None:
           "plan": agg_op.plan(served), **serve_times})
     del served
 
-    # --- 15. profile -----------------------------------------------------------
+    # --- 17. profile -----------------------------------------------------------
     k = PROFILE_STEPS
     single = dataclasses.replace(opts.anneal, n_steps=k, p_swap=0.0)
     batched = dataclasses.replace(opts.anneal, n_steps=k)
@@ -1855,7 +1979,7 @@ def main() -> None:
               lambda: optimize(snap, cfg, goal_names, warm_opts,
                                warm_start=STORE.get(session)))}})
 
-    # --- 16. summary lines -----------------------------------------------------
+    # --- 18. summary lines -----------------------------------------------------
     if options_bound_ms != times["bound_ms"]:
         fail(f"the costModel's broker-aggregates bound {options_bound_ms} ms differs from the "
              f"kernel line's {times['bound_ms']} ms")
@@ -1870,6 +1994,8 @@ def main() -> None:
         "launches_per_options_propose": per_options_propose,
         "launches_per_service_rebalance": per_service["dry_run"],
         "launches_per_service_verb": per_service,
+        "launches_per_scenario_family": per_family,
+        "launches_per_chaos_window": per_chaos_window,
         "sidecar_path": {k: serve_times[k] for k in ("device_ms", "call_ms", "host_us")},
         "max_abs_err": max_err,
         "ms": times["call_ms"], "device_ms": times["device_ms"],

@@ -46,6 +46,7 @@ COPIES = (
     "servlet/security.py", "servlet/ui.py", "servlet/openapi.py",
     "servlet/openapi_server.py", "servlet/server.py",
     "client/__init__.py", "client/__main__.py", "client/client.py", "client/cli.py",
+    "bench/__init__.py", "bench/scenarios.py",
 )
 
 #: the service layer's modules that are ports, not copies (they reach the
@@ -89,6 +90,15 @@ EDITED = {
         [("# measured per-wave completion telemetry (", "): real MB/s from finished"),
          ("# measured completion telemetry (", "# measured completion telemetry (")],
         "comments cited the JAX package's change history",
+    ),
+    "bench/scenarios.py": (
+        [("Every banked quality and latency number", "cases — broker failures"),
+         ("damage; the round-14 repair", "damage; the round-14 repair"),
+         ("Stdlib + numpy only on the generation path", "jax init; the ledger"),
+         ("warm-recovery acceptance gate (ccx bench", "warm-recovery acceptance gate (ccx bench")],
+        "texts that cited the JAX package's change history, its bench's "
+        "command or its jax initialisation; every family, envelope and "
+        "generator line is unchanged",
     ),
     "detector/manager.py": (
         [("# the live-stream detector (", "# the live-stream detector ("),
