@@ -16,7 +16,8 @@ budget and the pipeline stages:
   with ``full``'s effort and the portfolio on.
 
 ``steady_options`` is the bench's steady-state warm budget
-(``steady_wire_options`` its Propose keys), ``drift_metrics`` its drift
+(``steady_wire_options`` its Propose keys), ``fleet_wire_options`` its
+fleet rung's cold Propose keys, ``drift_metrics`` its drift
 rule for one metrics window, and ``wire_options`` a rung's options as a
 sidecar Propose's ``options`` map.
 
@@ -119,6 +120,22 @@ def steady_wire_options() -> dict:
         "warm_swap_candidates": w.warm_swap_candidates, "warm_steps": w.warm_steps,
         "warm_chunk_steps": w.warm_chunk_steps, "warm_chains": w.warm_chains,
         "warm_moves": w.warm_moves_per_step, "plateau_window": w.plateau_window,
+    }
+
+
+def fleet_wire_options() -> dict:
+    """The fleet rung's cold Propose keys (the bench's ``_fleet_options``): a
+    B3-sized job with several chunk boundaries per phase, the points where
+    the fleet scheduler interleaves jobs. Fixed, so runs stay comparable."""
+    return {
+        "chains": 8, "steps": 400, "moves_per_step": 4, "seed": 42,
+        "chunk_steps": 100,
+        "polish_candidates": 128, "polish_max_iters": 120,
+        "polish_patience": 8, "polish_chunk_iters": 30,
+        "run_cold_greedy": False, "topic_rebalance_rounds": 0,
+        "swap_polish_iters": 60, "swap_polish_post_iters": 0,
+        "swap_polish_candidates": 64, "swap_polish_chunk_iters": 30,
+        "leader_pass_max_iters": 60,
     }
 
 

@@ -29,7 +29,7 @@ def _port_sources() -> list[Path]:
     return sorted((ROOT / "ccx_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tools" / "time_torch_aggregates.py",
         ROOT / "tools" / "torch_lean_samples.py", ROOT / "tools" / "rehearse_service.py",
-        ROOT / "tools" / "torch_scenario_stages.py"]
+        ROOT / "tools" / "torch_scenario_stages.py", ROOT / "tools" / "torch_soak_bands.py"]
 
 
 def _imported_roots(path: Path) -> set[str]:
