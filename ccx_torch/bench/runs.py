@@ -146,6 +146,13 @@ class Served:
     m_applied: TensorClusterModel
     applied: dict
     ref: str
+    #: the full put of the cold fixture: msgpack seconds, put seconds and
+    #: bytes, and the cold Propose's client-side timings (decode seconds,
+    #: frames, segments)
+    encode_s: float = 0.0
+    put_full_s: float = 0.0
+    snapshot_bytes: int = 0
+    cold_timings: dict = dataclasses.field(default_factory=dict)
 
     def close(self) -> None:
         self.server.stop(0).wait(30)
@@ -173,12 +180,19 @@ def serve_cold(name: str, device=None, *, spec: RandomClusterSpec | None = None,
     server.start()
     address = f"127.0.0.1:{port}"
     ref = f"runs-{name}-ref"
+    cold_timings: dict = {}
     try:
         with SidecarClient(address) as client:
-            client.put_snapshot(None, session=ref, generation=1, packed=to_msgpack(m0))
+            t0 = time.monotonic()
+            packed = to_msgpack(m0)
+            encode_s = time.monotonic() - t0
+            t0 = time.monotonic()
+            client.put_snapshot(None, session=ref, generation=1, packed=packed)
+            put_full_s = time.monotonic() - t0
             n0 = agg_op.LAUNCHES
             t0 = time.monotonic()
-            cold_res = client.propose(session=ref, goals=goal_names, columnar=True, **cold_wire)
+            cold_res = client.propose(session=ref, goals=goal_names, columnar=True,
+                                      timings=cold_timings, **cold_wire)
             cold_s = time.monotonic() - t0
             cold_launches = agg_op.LAUNCHES - n0
         warm_base = incr.STORE.get(ref)
@@ -198,7 +212,8 @@ def serve_cold(name: str, device=None, *, spec: RandomClusterSpec | None = None,
         warm_wire=steady_wire_options() if warm_wire is None else dict(warm_wire),
         cold_effort=cold_effort, cold_res=cold_res, cold_s=cold_s,
         cold_launches=cold_launches, m_applied=m_applied,
-        applied=model_to_arrays(m_applied), ref=ref,
+        applied=model_to_arrays(m_applied), ref=ref, encode_s=encode_s,
+        put_full_s=put_full_s, snapshot_bytes=len(packed), cold_timings=cold_timings,
     )
 
 

@@ -27,16 +27,17 @@
 //   row out whole, zeros included, with 16-byte stores. The topic matrices
 //   take no atomics and no fill.
 // - The eight per-broker rows (4 loads, replica count, leader count,
-//   potential NW_OUT, leader bytes-in) and the [B, D] disk rows, which the
-//   caller zeroes (36 KB at B5) with one memset, are summed one of two
-//   ways, chosen per call from the input (`plan`):
+//   potential NW_OUT, leader bytes-in) and the [B, D] disk rows are summed
+//   as 64-bit fixed-point integers (below) into a scratch buffer, zeroed
+//   (74 KB at B5) with one memset, one of two ways, chosen per call from
+//   the input (`plan`):
 //   - shared rows, for dense clusters: each block adds its replicas into
 //     its own rows in shared memory; a cluster of 4 blocks sums them
 //     through distributed shared memory, each block a quarter of the cells,
-//     and adds them to the output with one global atomic per non-zero cell:
+//     and adds them to the global sums with one atomic per non-zero cell:
 //     4x fewer than one flush per block;
 //   - global rows, for sparse ones: each replica adds straight into the
-//     output. Zeroing and reducing a block's 9 x B cells costs more than
+//     global sums. Zeroing and reducing a block's 9 x B cells costs more than
 //     the atomics they save once a block adds fewer replica slots than it
 //     holds brokers (the 4000-broker fixture: ~67 partitions per block
 //     against 4096 brokers).
@@ -49,10 +50,12 @@
 //   of a partition's slots and loads before its additions; the grid is as
 //   many clusters as fit at once (30 clusters of 4 on an H100), shared
 //   among the broker tiles. The device attributes and the shared-memory
-//   limit are set once per device (`ccx_broker_aggregates_init`).
+//   limit are set once per device (`ccx_broker_aggregates_init`). A small
+//   pass before it takes each resource's largest |load|, and one after it
+//   writes the output rows from the fixed-point sums.
 //
-// Where the time goes with shared rows (B5, H100, per-phase stamps of the
-// blocks): ~15 us, of which ~7 us is the pass over the entries, ~1 us each
+// Where the time went with float shared rows (B5, H100, per-phase stamps of
+// the blocks, before the fixed-point sums): ~15 us, of which ~7 us is the pass over the entries, ~1 us each
 // finding the owned topics, writing the topic rows, waiting at and
 // reducing across the cluster. Shared memory has no float atomic add:
 // atomicAdd on a shared float compiles to a compare-and-swap loop
@@ -61,8 +64,17 @@
 // replicas by broker with plain adds by the broker's owning thread, were no
 // faster at B5.
 //
-// Counts use int32 atomics and are exact; float sums land in a
-// run-dependent order.
+// Counts use integer atomics and are exact. So are the float sums: every
+// per-broker and disk row is summed as a 64-bit fixed-point integer, and the
+// sums are rounded to float32 once, at the end. Float atomics would add in
+// a run-dependent order, so two calls on one model would differ in the last
+// bits of about half the cells, and two seeded runs of the annealer, which
+// starts from these sums, would part in their first chunk. Each load row's
+// scale is a power of two read off the data: a first pass takes each
+// resource's largest |load| (a max, which no order changes), and the scale
+// leaves the sum of every replica slot's load below 2^62. The rows are
+// then exact to about 2^-62 of that bound, and the last pass writes the
+// float32 and int32 rows of the output from the integer sums.
 //
 // Interface: plain C, loaded with ctypes. The caller allocates the one
 // output buffer, launches on its stream, and checks the returned
@@ -93,6 +105,29 @@ constexpr int kCluster = 4;
 constexpr int kMaxDevices = 64;
 constexpr int kMaxR = 4;     // replica slots read ahead into registers
 
+constexpr int kAccThreads = 256;  // the scale and convert passes
+// the resource whose scale each float row takes (-1: a count)
+__device__ __forceinline__ int row_resource(int k) {
+  return k < kRes ? k : (k == kPot ? kNwOut : (k == kLbi ? kNwIn : -1));
+}
+
+typedef unsigned long long acc_t;  // a fixed-point sum, two's complement
+
+// The exponent of resource r's scale: with n_slots replica slots and the
+// largest |load| below 2^e, every sum of slot loads times 2^k stays below
+// 2^62 in magnitude.
+__device__ __forceinline__ int scale_exponent(const unsigned* max_bits, int r, int n_slots) {
+  int e = 0;
+  frexpf(__uint_as_float(max_bits[r]), &e);
+  int l = 0;
+  while ((1LL << l) < (long long)n_slots) ++l;
+  return 62 - e - l;
+}
+
+__device__ __forceinline__ acc_t to_fixed(float v, int k) {
+  return (acc_t)__double2ll_rn(ldexp((double)v, k));
+}
+
 // one live partition, read ahead of its additions
 struct Entry {
   int p, lead, row;
@@ -116,13 +151,18 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) broker_aggregates_kern
     const float* __restrict__ follower_load,     // [RES, P]
     int P, int R, int B, int T, int D, int BT, int KT,
     int32_t* __restrict__ topic_counts,          // [2, T, B]: replicas, leaders
-    float* __restrict__ rows) {                  // [8, B] then [B, D], zeroed
-  // shared words: with kSharedRows the per-broker rows [8][BT] and the disk
-  // rows [BT][D]; then the topic rows [KT][2][BT]
+    acc_t* __restrict__ acc,                     // [8, B] then [B, D], zeroed
+    const unsigned* __restrict__ max_bits) {     // [kRes] largest |load| bits
+  // shared words: with kSharedRows the per-broker fixed-point rows [8][BT]
+  // and the disk rows [BT][D], two words a cell; then the topic rows
+  // [KT][2][BT]
   extern __shared__ __align__(16) float smem[];
-  const int n_row_words = kSharedRows ? (kRows + D) * BT : 0;
+  const int n_cells = kSharedRows ? (kRows + D) * BT : 0;
+  const int n_row_words = 2 * n_cells;
   int32_t* s_topic = reinterpret_cast<int32_t*>(smem + n_row_words);
   __shared__ int s_t0, s_t1, s_e0, s_e1;
+  __shared__ int s_k[kRes];
+  if (threadIdx.x < kRes) s_k[threadIdx.x] = scale_exponent(max_bits, threadIdx.x, n_live * R);
 
   const int G = gridDim.x, g = blockIdx.x;
   const int b_lo = blockIdx.y * BT;
@@ -131,7 +171,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) broker_aggregates_kern
   // where a replica's per-broker sums go: row k of broker cell `at` is
   // row_base[k * stride + at], and its disk d row_base[kRows * stride +
   // at * D + d]
-  float* const row_base = kSharedRows ? smem : rows;
+  acc_t* const row_base = kSharedRows ? reinterpret_cast<acc_t*>(smem) : acc;
   const int stride = kSharedRows ? BT : B;
 
   // Topic t belongs to the group whose share of the index holds its first
@@ -176,14 +216,15 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) broker_aggregates_kern
     const int j = b - b_lo;
     if (b < 0 || b >= B || j < 0 || j >= bt) return;
     const bool is_lead = (s == x.lead);
-    float* const cell = row_base + (kSharedRows ? j : b);
+    acc_t* const cell = row_base + (kSharedRows ? j : b);
 #pragma unroll
-    for (int r = 0; r < kRes; ++r) atomicAdd(cell + r * stride, is_lead ? x.ll[r] : x.fl[r]);
-    atomicAdd(cell + kPot * stride, x.ll[kNwOut]);
-    atomicAdd(reinterpret_cast<int32_t*>(cell + kRc * stride), 1);
+    for (int r = 0; r < kRes; ++r)
+      atomicAdd(cell + r * stride, to_fixed(is_lead ? x.ll[r] : x.fl[r], s_k[r]));
+    atomicAdd(cell + kPot * stride, to_fixed(x.ll[kNwOut], s_k[kNwOut]));
+    atomicAdd(cell + kRc * stride, 1ULL);
     if (is_lead) {
-      atomicAdd(reinterpret_cast<int32_t*>(cell + kLc * stride), 1);
-      atomicAdd(cell + kLbi * stride, x.ll[kNwIn]);
+      atomicAdd(cell + kLc * stride, 1ULL);
+      atomicAdd(cell + kLbi * stride, to_fixed(x.ll[kNwIn], s_k[kNwIn]));
     }
     if (x.row >= 0) {
       atomicAdd(&s_topic[(2 * x.row) * BT + j], 1);
@@ -191,7 +232,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) broker_aggregates_kern
     }
     if (d >= 0 && d < D)
       atomicAdd(row_base + kRows * stride + (kSharedRows ? j : b) * D + d,
-                is_lead ? x.ll[kDisk] : x.fl[kDisk]);
+                to_fixed(is_lead ? x.ll[kDisk] : x.fl[kDisk], s_k[kDisk]));
   };
   auto add = [&](const Entry& x) {
 #pragma unroll
@@ -242,14 +283,15 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) broker_aggregates_kern
 
   if constexpr (kSharedRows) {
     // sum the cluster's rows, each block one slice, and add them to the
-    // output
+    // global sums
     cg::cluster_group cluster = cg::this_cluster();
     cluster.sync();
     const int rank = (int)cluster.block_rank();
-    for (int i = rank * nt + tid; i < n_row_words; i += kCluster * nt) {
-      int j, at, k = -1;
+    acc_t* const cells = reinterpret_cast<acc_t*>(smem);
+    for (int i = rank * nt + tid; i < n_cells; i += kCluster * nt) {
+      int j, at;
       if (i < kRows * BT) {
-        k = i / BT;
+        const int k = i / BT;
         j = i - k * BT;
         at = k * B + b_lo + j;
       } else {
@@ -258,21 +300,44 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) broker_aggregates_kern
         at = kRows * B + b_lo * D + x;
       }
       if (j >= bt) continue;
-      if (k == kRc || k == kLc) {
-        int sum = 0;
+      acc_t sum = 0;
 #pragma unroll
-        for (int q = 0; q < kCluster; ++q)
-          sum += reinterpret_cast<const int32_t*>(cluster.map_shared_rank(smem, q))[i];
-        if (sum != 0) atomicAdd(reinterpret_cast<int32_t*>(rows) + at, sum);
-      } else {
-        float sum = 0.0f;
-#pragma unroll
-        for (int q = 0; q < kCluster; ++q) sum += cluster.map_shared_rank(smem, q)[i];
-        if (sum != 0.0f) atomicAdd(rows + at, sum);
-      }
+      for (int q = 0; q < kCluster; ++q) sum += cluster.map_shared_rank(cells, q)[i];
+      if (sum != 0) atomicAdd(acc + at, sum);
     }
     // no block leaves while another may still read its shared memory
     cluster.sync();
+  }
+}
+
+// The largest |load| of each resource over the leader and follower loads,
+// as float bits (a non-negative float orders as its bits do).
+__global__ void __launch_bounds__(kAccThreads) load_max_kernel(
+    const float* __restrict__ leader_load, const float* __restrict__ follower_load, int P,
+    unsigned* __restrict__ max_bits) {
+  const int r = blockIdx.y;
+  unsigned m = 0;
+  for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < P; p += gridDim.x * blockDim.x) {
+    m = max(m, __float_as_uint(fabsf(leader_load[(size_t)r * P + p])));
+    m = max(m, __float_as_uint(fabsf(follower_load[(size_t)r * P + p])));
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) m = max(m, __shfl_xor_sync(0xffffffffu, m, o));
+  if ((threadIdx.x & 31) == 0 && m != 0) atomicMax(max_bits + r, m);
+}
+
+// The output rows from the fixed-point sums: float32 loads, int32 counts.
+__global__ void __launch_bounds__(kAccThreads) rows_kernel(
+    const acc_t* __restrict__ acc, const unsigned* __restrict__ max_bits, int n_slots,
+    int B, int D, float* __restrict__ rows) {
+  const int n = kRows * B + B * D;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
+    const int r = i < kRows * B ? row_resource(i / B) : kDisk;
+    const long long v = (long long)acc[i];
+    if (r < 0)
+      reinterpret_cast<int32_t*>(rows)[i] = (int32_t)v;
+    else
+      rows[i] = (float)ldexp((double)v, -scale_exponent(max_bits, r, n_slots));
   }
 }
 
@@ -312,7 +377,7 @@ cudaLaunchConfig_t launch_config(const Plan& p, cudaStream_t stream, cudaLaunchA
 // in the budget beside one topic's two rows, the topics per pass, and the
 // grid of every co-resident cluster shared among the tiles.
 cudaError_t layout(DeviceInfo& info, bool shared_rows, int B, int T, int D, Plan& p) {
-  const int row_words = shared_rows ? kRows + D : 0;
+  const int row_words = shared_rows ? 2 * (kRows + D) : 0;  // 64-bit cells
   const long long per_broker = (long long)(row_words + 2) * 4;
   p.shared_rows = shared_rows;
   p.BT = B;
@@ -413,13 +478,21 @@ extern "C" int ccx_broker_aggregates_plan(int n_live, int R, int B, int T, int D
   return 0;
 }
 
-// out: int32 words [2 * T * B] topic counts, then the rows [8 * B + B * D]
-// that the kernel adds into (zeroed here with one memset).
+// Words of the scratch a call needs: the fixed-point rows [8 * B + B * D]
+// (64-bit) and the kRes largest-|load| words.
+extern "C" long long ccx_broker_aggregates_scratch_words(int B, int D) {
+  return 2 * ((long long)kRows * B + (long long)B * D) + kRes;
+}
+
+// out: int32 words [2 * T * B] topic counts, then the rows [8 * B + B * D],
+// every word written here. scratch: ccx_broker_aggregates_scratch_words
+// words, zeroed here with one memset.
 extern "C" int ccx_broker_aggregates(
     const void* order, const void* offsets, int n_live,
     const void* assignment, const void* leader_slot, const void* replica_disk,
     const void* partition_topic, const void* leader_load, const void* follower_load,
-    int P, int R, int B, int T, int D, int rows_mode, void* out, int device, void* stream) {
+    int P, int R, int B, int T, int D, int rows_mode, void* out, void* scratch, int device,
+    void* stream) {
   Plan p;
   cudaError_t err = plan(n_live, R, B, T, D, device, rows_mode, p);
   if (err != cudaSuccess) return (int)err;
@@ -429,7 +502,16 @@ extern "C" int ccx_broker_aggregates(
 
   int32_t* topic_counts = static_cast<int32_t*>(out);
   float* rows = reinterpret_cast<float*>(topic_counts + 2 * (size_t)T * B);
-  err = cudaMemsetAsync(rows, 0, ((size_t)kRows * B + (size_t)B * D) * 4, s);
+  const size_t n_acc = (size_t)kRows * B + (size_t)B * D;
+  acc_t* acc = static_cast<acc_t*>(scratch);
+  unsigned* max_bits = reinterpret_cast<unsigned*>(acc + n_acc);
+  err = cudaMemsetAsync(scratch, 0, ccx_broker_aggregates_scratch_words(B, D) * 4, s);
+  if (err != cudaSuccess) return (int)err;
+  const int max_blocks = (P + kAccThreads - 1) / kAccThreads;
+  load_max_kernel<<<dim3(max_blocks < 64 ? (max_blocks > 0 ? max_blocks : 1) : 64, kRes),
+                    kAccThreads, 0, s>>>(static_cast<const float*>(leader_load),
+                                         static_cast<const float*>(follower_load), P, max_bits);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   auto* kernel = p.shared_rows ? &broker_aggregates_kernel<true> : &broker_aggregates_kernel<false>;
   err = cudaLaunchKernelEx(
@@ -438,7 +520,11 @@ extern "C" int ccx_broker_aggregates(
       static_cast<const int32_t*>(assignment), static_cast<const int32_t*>(leader_slot),
       static_cast<const int32_t*>(replica_disk), static_cast<const int32_t*>(partition_topic),
       static_cast<const float*>(leader_load), static_cast<const float*>(follower_load),
-      P, R, B, T, D, p.BT, p.KT, topic_counts, rows);
+      P, R, B, T, D, p.BT, p.KT, topic_counts, acc, max_bits);
   if (err != cudaSuccess) return (int)err;
+  const int cells = (int)n_acc;
+  const int row_blocks = (cells + kAccThreads - 1) / kAccThreads;
+  rows_kernel<<<row_blocks < 264 ? row_blocks : 264, kAccThreads, 0, s>>>(
+      acc, max_bits, n_live * R, B, D, rows);
   return (int)cudaGetLastError();
 }

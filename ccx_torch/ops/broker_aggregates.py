@@ -6,8 +6,10 @@ and its launch counter.
 loaded with ctypes). It hands the kernel the model's topic index (the live
 partitions grouped by topic, built once per ``partition_topic`` /
 ``partition_valid`` pair and cached) and one ``torch.empty`` buffer that
-``carve`` cuts into the eight fields. The kernel sums the per-broker rows in
-shared memory or straight into the output, as ``plan`` shows; it chooses
+``carve`` cuts into the eight fields, and a scratch buffer for its sums. The
+kernel sums the per-broker rows as 64-bit fixed-point integers, so every
+call on one model returns the same bits, in shared memory or straight into
+the scratch, as ``plan`` shows; it chooses
 from the model's sizes unless ``rows`` names one way, as the on-card checks
 do to hold both against the plain version. ``broker_aggregates_plain`` computes
 the same function with ``index_add_``; the CPU path and the comparisons use
@@ -110,9 +112,11 @@ def _library(dev: torch.device):
             fn.argtypes = (
                 [ctypes.c_void_p] * 2 + [ctypes.c_int]
                 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+                + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
             )
             fn.restype = ctypes.c_int
+            lib.ccx_broker_aggregates_scratch_words.argtypes = [ctypes.c_int] * 2
+            lib.ccx_broker_aggregates_scratch_words.restype = ctypes.c_longlong
             lib.ccx_broker_aggregates_plan.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
             lib.ccx_broker_aggregates_plan.restype = ctypes.c_int
             _lib = lib
@@ -212,8 +216,8 @@ def output_layout(B: int, T: int, D: int) -> tuple[Layout, int]:
     """The eight fields' places in the one int32 output buffer: (name, word
     offset, shape, dtype) each, and the buffer's length in words. The two
     topic matrices come first (the kernel writes them whole); then the
-    kernel's eight per-broker rows in its order, then the disk rows, all of
-    which it zeroes with one memset and adds into."""
+    kernel's eight per-broker rows in its order, then the disk rows, which
+    it writes whole from its fixed-point sums."""
     fields = (
         ("topic_replica_count", (T, B), torch.int32),
         ("topic_leader_count", (T, B), torch.int32),
@@ -291,6 +295,9 @@ def broker_aggregates_cuda(m: TensorClusterModel, rows: str = "auto") -> BrokerA
     lib = _library(dev)
     index = topic_index(m)
     buf = torch.empty(output_layout(B, T, D)[1], dtype=torch.int32, device=dev)
+    # the kernel's fixed-point sums, zeroed and consumed inside the call
+    scratch = torch.empty(lib.ccx_broker_aggregates_scratch_words(B, D), dtype=torch.int32,
+                          device=dev)
     # one launch at a time: the library's per-device plan cache is shared
     # by every thread (fleet jobs launch from several)
     with _launch_lock, torch.cuda.device(dev):
@@ -298,7 +305,7 @@ def broker_aggregates_cuda(m: TensorClusterModel, rows: str = "auto") -> BrokerA
             index.order.data_ptr(), index.offsets.data_ptr(), index.order.numel(),
             m.assignment.data_ptr(), m.leader_slot.data_ptr(), m.replica_disk.data_ptr(),
             m.partition_topic.data_ptr(), m.leader_load.data_ptr(), m.follower_load.data_ptr(),
-            P, R, B, T, D, ROWS[rows], buf.data_ptr(), dev.index,
+            P, R, B, T, D, ROWS[rows], buf.data_ptr(), scratch.data_ptr(), dev.index,
             torch.cuda.current_stream(dev).cuda_stream,
         )
         if rc == 0:

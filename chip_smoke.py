@@ -18,8 +18,10 @@ Phases, one JSON line each:
    filled with a non-zero pattern in between). Every fixture runs the
    kernel as it chooses and with each of its two ways of summing the
    per-broker rows forced (shared memory, global), with each plan reported.
-   Integers must match exactly, floats within rtol 1e-5 / atol 1e-3 (float
-   sums are taken with atomics in a run-dependent order);
+   Integers must match exactly, floats within rtol 1e-5 / atol 1e-3 (the
+   kernel sums in 64-bit fixed point and rounds once, the plain version in
+   float32), and a second call on the same model must return the same
+   bits;
 4. main path — ``ccx_torch.optimizer.optimize`` on B5 with the full
    default goal stack at the bench's "target" rung, built by
    ``ccx_torch.rungs.build_opts("B5", "target")`` (16 chains x 250 steps x 8
@@ -44,7 +46,7 @@ Phases, one JSON line each:
    touched brokers, diff rows, any revert, the plan's waves and backend,
    ``verified``, hard violations, aggregates launches; every window's
    shipped plan is held array-exact against the numpy oracle, and the
-   first 3 measured windows' diffs are also planned with the device loop
+   first measured window's diff is also planned with the device loop
    forced and held against it (1-4 s a plan). Over the 10 measured windows
    (the first 2 warm up): p50 and p99 of the wall and the card's memory
    peak. Fails on a window that is not warm-started, unverified, has a
@@ -54,10 +56,18 @@ Phases, one JSON line each:
    over the targeted hot list and the swap polish, verify with no hard
    violation and leave no replica on a dead broker; the plateau report,
    chunks run against the budget, offenders and wall;
-8. ladder — SA on the repaired B5 at the target rung's budget (16 chains x
-   250 steps x 8 moves) in chunks of 25, with ``n_temps=4`` and with
-   ``n_temps=1``: wall, exchange attempts and accepts from the taps, and the
-   result's stack;
+8. exchange A/B — ``ccx_torch.bench.ab.run_exchange_ab`` (the JAX bench's
+   ``--exchange-ab``) on the repaired B5 at the target rung's SA budget (16
+   chains x 250 steps x 8 moves) in chunks of 25: the flat batch
+   (``n_temps=1``) and the ladder (``n_temps=4``, exchange every chunk)
+   with taps armed, then a flat run at exchange interval 3, which must
+   return the flat placement bit for bit, and the ladder at 50 steps, which
+   must build nothing. It fails unless the K=1 probe is bit-exact, the
+   retune built nothing, an exchange was attempted and every arm launched
+   the kernel; the run's ``ladder_better`` and ``verified`` are reported,
+   not gated (``check_exchange_ab``). Its line keeps the former ladder phase's
+   ``n_temps=4`` and ``n_temps=1`` blocks (wall, exchange attempts and
+   accepts, the result's stack);
 9. sidecar serve — the port's sidecar (``ccx_torch.sidecar.server``) on
    ``127.0.0.1:0`` in this process, driven by the port's gRPC client
    (in process through the byte-identity handlers when ``grpc`` does not
@@ -94,7 +104,17 @@ Phases, one JSON line each:
    Propose rebuilds and verifies (and gives one job's time alone), and a
    job cancelled mid-anneal raises ``JobCancelled`` and leaves the run
    queue;
-12. service — the port's REST service over B5: a ``SimulatedCluster`` with
+12. fleet run — ``ccx_torch.bench.serving.run_fleet`` (the JAX bench's
+   ``--fleet``) at B3 with 2 jobs (the JAX run's 16) at the fleet phase's
+   budget on a sidecar of its own: a prewarm job, the 2 jobs in turn, the 2
+   at once on the fleet scheduler, then a second wave of 2 with a
+   priority-10 job sent halfway through the concurrent p50. It fails
+   unless the run is verified (every job verified, no kernel build in the
+   serialized or concurrent phase), the urgent job and its wave verified,
+   the scheduler's settings were restored and every phase launched the
+   kernel. Serialized and concurrent seconds, ``speedup`` (reported, not
+   gated), p50 and p99, occupancy and depth;
+13. service — the port's REST service over B5: a ``SimulatedCluster`` with
    B5's brokers, racks and placement, its per-broker capacities in a
    capacity file (``FileCapacityResolver``, named by the JAX package's
    class path, which resolves under ``ccx_torch``), and a sampler here
@@ -117,7 +137,7 @@ Phases, one JSON line each:
    must drain. No ``jax`` or ``ccx`` module may have been loaded. Whether
    the native host scatter ran (``ccx_torch.native.state()``) and the
    card's memory peak;
-13. scenario — one more sidecar on ``127.0.0.1:0`` and one cold Propose
+14. scenario — one more sidecar on ``127.0.0.1:0`` and one cold Propose
    of B5 at the target rung (``ccx_torch.bench.runs.serve_cold``), then the
    scenario corpus (``runs.run_scenario``, the JAX bench's ``--scenario``)
    from its applied result: the five families of
@@ -129,7 +149,7 @@ Phases, one JSON line each:
    warm-started, every family inside its envelope, the clean baseline ok,
    a verb family recovering within 2x the clean p50), every family
    launched the kernel, and no kernel build fell in the measured loop;
-14. chaos — the chaos run (``runs.run_chaos``, the JAX bench's
+15. chaos — the chaos run (``runs.run_chaos``, the JAX bench's
    ``--chaos``) from the same cold result, on a session of its own: 2 + 3
    clean drift windows, then 7 windows (one cycle of the seven seams of
    ``CHAOS_SCENARIOS``) each with one fault armed, through the retrying
@@ -138,7 +158,21 @@ Phases, one JSON line each:
    recovery walls, the epilogue warm and verified), every seam fired,
    every faulted window launched the kernel, and no kernel build fell in a
    measured loop;
-15. soak — the closed-loop soak (``runs.run_soak``, the JAX bench's
+16. steady — ``ccx_torch.bench.serving.run_steady`` (the JAX bench's
+   ``--steady``) from the same cold result on a session of its own: the
+   applied placement put in full, 2 un-timed warm windows, then 10 (the
+   JAX run's 20) of the drift rule (seed 123), each a metric-only delta
+   put and a warm Propose. It fails unless the run is verified (every
+   window verified and warm-started, no kernel build in the measured loop)
+   and every measured window launched the kernel. p50, p99, the put's
+   seconds and the registry's grafts;
+17. wire — ``serving.run_wire`` (the JAX bench's ``--wire``) the same way
+   (drift seed 321), its cold leg read off the shared cold Propose instead
+   of a repeat: each window split into put, optimize, diff, assembly,
+   pack, bank, client decode and the transport residual; the headline is
+   the p50 of put + round trip - optimizer. Gates as ``steady``'s, and the
+   cold result verified;
+18. soak — the closed-loop soak (``runs.run_soak``, the JAX bench's
    ``--soak``) at B3, full width, from a cold Propose of its own at B3's
    target rung with the fleet phase's SA budget (``runs.serve_cold(opts=...)``;
    the bank kill's cold fallback runs the same options):
@@ -152,8 +186,8 @@ Phases, one JSON line each:
    opened exactly one episode that fired one verb and recovered, every
    window was served and launched the kernel, and no kernel build fell in
    the measured loop;
-16. steady fleet — ``runs.run_steady_fleet`` (the JAX bench's
-   ``--steady-fleet``) at B3, full width: 4 clusters (the JAX run's 16) x
+19. steady fleet — ``runs.run_steady_fleet`` (the JAX bench's
+   ``--steady-fleet``) at B3, full width: 3 clusters (the JAX run's 16) x
    10 windows, cold converges at the fleet phase's budget, two prewarm
    windows each and a 10-window single-session baseline, then the
    clusters' windows at once on one sidecar under the device-memory
@@ -165,7 +199,19 @@ Phases, one JSON line each:
    whose banking re-scans the pressure). Aggregate and single rates, their
    ratio, p50 and p99, the scheduler's occupancy and mean depth, the
    ledger's largest evictable bytes against its budget;
-17. result check — a small cluster's stack on the card held against the same
+20. plan — ``ccx_torch.bench.ab.run_plan`` (the JAX bench's ``--plan``):
+   one optimize of B2 at the smoke rung with the planner armed (B5's
+   53k-row cold diff takes the device loop 100-130 s; ``--plan B5`` runs
+   it), its diff planned by the device loop and held against the numpy
+   oracle on every output array and against the naive executor schedule,
+   the movement-cost tier on the card and in numpy; the warm re-plan loop
+   cut to 8 plans on the size rule's backend (its bound is 128); the
+   disk-evacuation family on B3 with 1 window (the JAX run's 4). It fails unless the run is
+   verified (planned no worse than naive on makespan and peak inflow for
+   the cold diff and the evacuation total, the oracle pins, every optimize
+   verified, no build in the re-plan loop) and the cold optimize and the
+   evacuation launched the kernel;
+21. result check — a small cluster's stack on the card held against the same
    stack on the CPU, and three batched SA steps on a 64-broker cluster (3
    chains, 4 moves), then three swap-polish iterations, fed the same draws
    on the card and on the CPU: integer state, placement and grouped mirror
@@ -175,7 +221,7 @@ Phases, one JSON line each:
    mask and hot list (pressure stack within rtol 1e-5 / atol 1e-3) on both,
    and the CPU window's diff planned by the device loop on both gives the
    same waves;
-18. after the paths, which so run as they would alone: the same kernel
+22. after the paths, which so run as they would alone: the same kernel
    check on B6 (10k brokers / 1M partitions, whose shared rows need broker
    tiles), then the kernel times at B5, 4000 brokers and B6 (last, since
    torch.profiler's tracing slows every later launch of the process):
@@ -186,23 +232,26 @@ Phases, one JSON line each:
    version's time, and the same times on the model the sidecar built from
    the wire. The ``kernels`` line gives B5's: its ``ms`` is the call time
    ``call_ms``, beside ``device_ms`` and ``host_us``;
-19. profile — the device busy share and kernel count, under torch.profiler,
-   of windows on the repaired B5 model: 10 single-move SA steps
-   (``p_swap=0``) and 10 polish iterations, as measured before the swap
-   engine, then 10 batched SA steps at ``p_swap=0.15`` and 10 swap-polish
-   iterations, and one more warm window on the warm path's last snapshot;
-   before them, how many times each of these calls (10 steps or
-   iterations; one warm window) makes the host wait for the card;
-20. the card's ``nvidia-smi`` line, then the ``kernels`` line, then the
+23. profile — the device busy share and kernel count, under torch.profiler,
+   of windows on the repaired B5 model: 5 polish iterations, 5 batched SA
+   steps at ``p_swap=0.15`` and 5 swap-polish iterations, and one more warm
+   window on the warm path's last snapshot (once 10 steps and iterations,
+   with a single-move SA window, ``p_swap=0``, on no path since the swap
+   engine: both cut for the clock, since the profiler's trace processing
+   took about 0.5 ms a kernel, 168 s in all); before them, how many times
+   10 steps or iterations of each, and one warm window, make the host wait
+   for the card;
+24. the card's ``nvidia-smi`` line, then the ``kernels`` line, then the
    contract line ``{"ok": true, "device": {...}}`` last.
 
 Any failed check, an unverified result, remaining hard violations, a path
 that never proposed both kinds of swap (target) or launched a kernel of
 the path zero times exits non-zero. Each path (main, lean, warm,
-structural, ladder, sidecar serve, sidecar options, fleet, the service's
-dry run, detection round, warm proposal and demo execution, scenario,
-chaos, soak and steady fleet) sets the launch count to 0 just before it
-runs and reads it just after. Needs one CUDA
+structural, exchange A/B, sidecar serve, sidecar options, fleet, fleet
+run, the service's dry run, detection round, warm proposal and demo
+execution, scenario, chaos, steady, wire, soak, steady fleet and plan) sets
+the launch count to 0 just before it runs and reads it just after. Needs
+one CUDA
 device; run from the repository root: ``python3 chip_smoke.py``.
 """
 
@@ -224,7 +273,9 @@ INT_FIELDS = ("replica_count", "leader_count", "topic_replica_count", "topic_lea
 PATHS = (("main-path", "target"), ("lean-path", "lean"))
 #: CUDA-event timing launches per kernel; SA steps and descent iterations
 #: under the profiler
-TIMING_ITERS, PROFILE_STEPS = 200, 10
+TIMING_ITERS, PROFILE_STEPS = 200, 5
+#: SA steps and descent iterations of the host-sync counts (no profiler)
+SYNC_STEPS = 10
 #: the card-against-CPU batched step: a cluster wide enough for the batched
 #: engine (64 brokers >= 4 * R * 4 moves), chains, moves, steps
 STEP_SPEC = dict(n_brokers=64, n_racks=8, n_topics=16, n_partitions=400,
@@ -242,7 +293,7 @@ WARM_UP, WARM_WINDOWS, DRIFT, DRIFT_SEED = 2, 10, 0.01, 123
 #: measured warm windows whose diff is also planned with the device loop
 #: forced (1-4 s a plan at B5; the shipped plan of every window is held
 #: against the numpy oracle)
-FORCED_PLAN_WINDOWS = 3
+FORCED_PLAN_WINDOWS = 1
 #: live brokers marked dead in the structural window
 DEAD_IN_WINDOW = 2
 #: the sidecar's metrics windows (delta PutSnapshot + warm Propose)
@@ -288,11 +339,24 @@ DEMO_KEYS = {"optimizer.num.chains": 8, "optimizer.num.steps": 40,
 SCENARIO_WINDOWS, SCENARIO_SEED, CHAOS_WINDOWS = 4, 7, 7
 #: the soak phase: clusters, ticks (the JAX run's 96 cut to 36, which
 #: still places one injection of each kind) and seed; the steady-fleet
-#: phase: clusters (the JAX run's 16 cut to 4) and windows each
+#: phase: clusters (the JAX run's 16 cut to 3) and windows each
 SOAK_CLUSTERS, SOAK_TICKS, SOAK_SEED = 2, 36, 1729
-STEADY_FLEET_CLUSTERS, STEADY_FLEET_WINDOWS = 4, 10
-#: the ladder phase: temperature rungs and steps per chunk
-LADDER_TEMPS, LADDER_CHUNK = 4, 25
+STEADY_FLEET_CLUSTERS, STEADY_FLEET_WINDOWS = 3, 10
+#: the exchange A/B phase's steps per chunk (its 4 temperature rungs are
+#: the run's default, ``CCX_EXCHANGE_TEMPS``), and the rungs of the
+#: result check's exchange sweep
+LADDER_CHUNK, LADDER_TEMPS = 25, 4
+#: the steady and wire phases: measured windows each (the JAX runs' 20)
+WARM_RUN_WINDOWS = 10
+#: the fleet-run phase: jobs (the JAX run's 16), each at the fleet phase's
+#: budget, plus the urgent one
+FLEET_RUN_JOBS = 2
+#: the plan phase: its config, evacuation windows (the JAX run's 4) and the
+#: re-plan loop's cap (its bound is twice the planner's 64 waves). At B5 the
+#: device loop's plan of the 53k-row cold diff alone took 100-130 s on an
+#: H100 and the script 1201 s, so the phase runs B2 (50 brokers, 5000
+#: partitions) and ``python -m ccx_torch.bench --plan B5`` covers B5
+PLAN_CONFIG, PLAN_EVAC_WINDOWS, PLAN_REPLAN_ITERS = "B2", 1, 8
 #: fixtures of the kernel-time phase: B5, a sparse wide cluster, and B6,
 #: whose 16384 brokers need broker tiles for rows in shared memory
 TIME_FIXTURES = ("B5", "4000-brokers", "B6")
@@ -734,36 +798,57 @@ def structural_window(snap, cfg, goal_names, opts, session, agg_op) -> dict:
     return line
 
 
-def ladder_run(repaired, cfg, goal_names, opts, agg_op) -> dict:
-    """Phase 8: the target rung's SA budget on the repaired B5, chunked,
-    with and without the replica-exchange ladder."""
+def exchange_ab_phase(repaired, goal_names, opts, agg_op) -> dict:
+    """Phase 8 (module docstring): the exchange A/B (``ccx_torch.bench.ab.
+    run_exchange_ab``) on the repaired B5 at the target rung's SA budget in
+    chunks of ``LADDER_CHUNK``. Its line keeps every field of the ladder
+    phase it replaced (the ``n_temps=K`` and ``n_temps=1`` blocks)."""
     import torch
-    from ccx_torch.search.annealer import anneal
 
-    runs = {}
+    from ccx_torch.bench import ab
+
+    torch.cuda.synchronize()
     agg_op.LAUNCHES = 0
-    for n_temps in (LADDER_TEMPS, 1):
-        aopts = dataclasses.replace(opts.anneal, chunk_steps=LADDER_CHUNK, n_temps=n_temps)
-        t = time.monotonic()
-        sa = anneal(repaired, cfg, goal_names, aopts)
-        torch.cuda.synchronize()
-        ex = (sa.convergence or {}).get("exchange") or {}
-        runs[f"n_temps={n_temps}"] = {
-            "wall_seconds": time.monotonic() - t, "chains": sa.n_chains,
-            "chunks": (sa.convergence or {}).get("chunks"),
-            "exchange_attempted": sum(ex.get("attempted", [])),
-            "exchange_accepted": sum(ex.get("accepted", [])),
-            "accepted": sa.n_accepted, "after": stack_line(sa.stack_after),
-            "costs": sa.stack_after.costs.tolist(),
-        }
+    t = time.monotonic()
+    line = ab.run_exchange_ab(
+        "B5", model=repaired, goals=goal_names,
+        anneal_opts=dataclasses.replace(opts.anneal, chunk_steps=LADDER_CHUNK))
+    torch.cuda.synchronize()
     launches = agg_op.LAUNCHES
-    if runs[f"n_temps={LADDER_TEMPS}"]["exchange_attempted"] == 0:
-        fail("ladder: no exchange was attempted")
-    if launches == 0:
-        fail("ladder never launched the broker_aggregates kernel")
-    return {"phase": "ladder", "config": "B5 after hard_repair", "steps": opts.anneal.n_steps,
-            "chains": opts.anneal.n_chains, "moves": opts.anneal.moves_per_step,
-            "chunk_steps": LADDER_CHUNK, "launches": {"broker_aggregates": launches}, **runs}
+    arms = {}
+    for key, arm in ((f"n_temps={line['n_temps']}", line["ladder"]), ("n_temps=1", line["flat"])):
+        arms[key] = {
+            "wall_seconds": arm["wall_s"], "chains": arm["chains"], "chunks": arm["chunks"],
+            "exchange_attempted": arm.get("exchange_attempted", 0),
+            "exchange_accepted": arm.get("exchange_accepted", 0), "accepted": arm["accepted"],
+            "after": {"hard": arm["hard_after"], "violations": arm["violations_after"]},
+            "costs": arm["final"],
+        }
+    line.update(phase="exchange-ab", config="B5 after hard_repair", steps=opts.anneal.n_steps,
+                chains=opts.anneal.n_chains, moves=opts.anneal.moves_per_step,
+                chunk_steps=LADDER_CHUNK, phase_seconds=time.monotonic() - t,
+                launches_per_arm=line["launches"]["broker_aggregates"],
+                launches={"broker_aggregates": launches}, path_launches=launches,
+                not_gated=["ladder_better", "verified"], **arms)
+    return line
+
+
+def check_exchange_ab(line: dict) -> None:
+    """Phase 8's gates: the run's gates on the code, the K=1 probe bit-exact
+    and no build on the retune, then an exchange attempted and a launch of
+    the kernel in every arm. The run's third gate, ``ladder_better``, is a
+    measurement of the search at this budget, reported and not gated here:
+    at the target rung's budget the flat batch ended lexicographically
+    better in every ladder phase this script ran before (three H100 runs),
+    and at B3's defaults the JAX bench's own run is unverified on it too."""
+    if line["ladder"]["exchange_attempted"] == 0:
+        fail("exchange-ab: no exchange was attempted")
+    for arm, n in line["launches_per_arm"].items():
+        if n == 0:
+            fail(f"exchange-ab: the {arm} arm never launched the broker_aggregates kernel")
+    if not line["k1_bitexact"] or line["fresh_compiles_on_retune"]:
+        fail(f"exchange-ab: k1_bitexact {line['k1_bitexact']} ({line['k1']}), builds on the "
+             f"retune {line['fresh_compiles_on_retune']}")
 
 
 def percentile(values, q: float) -> float:
@@ -1258,6 +1343,49 @@ def fleet_phase(dev, agg_op) -> dict:
     return line
 
 
+def fleet_run_phase(dev, agg_op) -> dict:
+    """Phase 12 (module docstring): its line."""
+    import torch
+
+    from ccx_torch import rungs
+    from ccx_torch.bench import serving
+    from ccx_torch.search.scheduler import FLEET
+
+    _, opts = fleet_options()
+    settings = FLEET.max_concurrent, FLEET.dispatch_width
+    torch.cuda.synchronize()
+    agg_op.LAUNCHES = 0
+    t = time.monotonic()
+    line = serving.run_fleet("B3", FLEET_RUN_JOBS, device=dev, options=rungs.wire_options(opts))
+    torch.cuda.synchronize()
+    line.update(phase="fleet-run", phase_seconds=time.monotonic() - t,
+                path_launches=agg_op.LAUNCHES,
+                scheduler_restored=(FLEET.max_concurrent, FLEET.dispatch_width) == settings,
+                reduced={"n_jobs": [16, FLEET_RUN_JOBS],
+                         "options": {"anneal": FLEET_ANNEAL, "polish": FLEET_POLISH,
+                                     "leader_iters": FLEET_LEADER_ITERS},
+                         "why": "the smoke's 1200 s clock: a B3 job at the fleet rung takes "
+                                "about a minute on the sequential SA engine"})
+    return line
+
+
+def check_fleet_run(line: dict) -> None:
+    """Phase 12's gates: the run's own (every serialized and concurrent job
+    verified, no kernel build in either), the urgent job and its wave
+    verified, the scheduler's settings restored, and a launch of the kernel
+    in every phase."""
+    if not line["scheduler_restored"]:
+        fail("fleet-run: the scheduler's settings were not restored")
+    for phase, n in line["launches"]["broker_aggregates"].items():
+        if n == 0:
+            fail(f"fleet-run: the {phase} phase never launched the broker_aggregates kernel")
+    if not (line["urgent"]["verified"] and line["urgent"]["wave_verified"]):
+        fail(f"fleet-run: the preemption probe failed: {line['urgent']}")
+    if not line["verified"]:
+        fail(f"fleet-run: not verified: compiles {line['compile_cache']}, latency "
+             f"{line['latency']}")
+
+
 class B5Sampler:
     """The service phase's metric sampler (``metric.sampler.class``
     ``__main__.B5Sampler``): replays the B5 fixture's per-partition leader
@@ -1365,7 +1493,7 @@ def rest(client, method: str, endpoint: str, params: dict | None = None) -> tupl
 
 
 def service_phase(dev, agg_op, name: str, spec, main_wall: float) -> dict:
-    """Phase 12 (module docstring). ``spec`` is config ``name``'s fixture
+    """Phase 13 (module docstring). ``spec`` is config ``name``'s fixture
     (B5 on the card); ``main_wall`` the main path's wall, printed beside
     the REST rebalance's."""
     import collections
@@ -1566,49 +1694,73 @@ def service_phase(dev, agg_op, name: str, spec, main_wall: float) -> dict:
     }
 
 
-def scenario_and_chaos(dev, agg_op) -> tuple[dict, dict]:
-    """Phases 13 and 14 (module docstring): one sidecar and one cold Propose
+def served_b5_phases(dev, agg_op) -> tuple[dict, dict, dict, dict]:
+    """Phases 14 to 17 (module docstring): one sidecar and one cold Propose
     of B5 at the target rung (``ccx_torch.bench.runs.serve_cold``), then the
-    scenario corpus and the chaos run from its applied result. Returns their
-    two lines."""
+    scenario corpus, the chaos run, the steady loop and the wire split from
+    its applied result. Returns their four lines."""
     import torch
 
-    from ccx_torch.bench import runs
+    from ccx_torch.bench import runs, serving
     from ccx_torch.common import costmodel
 
     costmodel.set_capture(True)
     served = runs.serve_cold("B5", dev)
+    lines = []
     try:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        agg_op.LAUNCHES = 0
-        t = time.monotonic()
-        scen = runs.run_scenario("B5", windows=SCENARIO_WINDOWS, seed=SCENARIO_SEED,
-                                 served=served)
-        torch.cuda.synchronize()
-        scen.update(phase="scenario", phase_seconds=time.monotonic() - t,
-                    path_launches=agg_op.LAUNCHES,
-                    peak_device_bytes=torch.cuda.max_memory_allocated())
-        torch.cuda.reset_peak_memory_stats()
-        agg_op.LAUNCHES = 0
-        t = time.monotonic()
-        chaos = runs.run_chaos("B5", n_iters=CHAOS_WINDOWS, served=served)
-        torch.cuda.synchronize()
-        chaos.update(phase="chaos", phase_seconds=time.monotonic() - t,
-                     path_launches=agg_op.LAUNCHES,
-                     peak_device_bytes=torch.cuda.max_memory_allocated())
+        for phase, run in (
+                ("scenario", lambda: runs.run_scenario("B5", windows=SCENARIO_WINDOWS,
+                                                       seed=SCENARIO_SEED, served=served)),
+                ("chaos", lambda: runs.run_chaos("B5", n_iters=CHAOS_WINDOWS, served=served)),
+                ("steady", lambda: serving.run_steady("B5", WARM_RUN_WINDOWS, served=served)),
+                ("wire", lambda: serving.run_wire("B5", WARM_RUN_WINDOWS, served=served,
+                                                  repeat_cold=False))):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            agg_op.LAUNCHES = 0
+            t = time.monotonic()
+            line = run()
+            torch.cuda.synchronize()
+            line.update(phase=phase, phase_seconds=time.monotonic() - t,
+                        path_launches=agg_op.LAUNCHES,
+                        peak_device_bytes=torch.cuda.max_memory_allocated())
+            lines.append(line)
     finally:
         served.close()
         costmodel.set_capture(False)
-    for line in (scen, chaos):
+    for line in lines:
         line["cold_propose"] = {"seconds": served.cold_s, "launches": served.cold_launches,
                                 "wall_seconds": served.cold_res["wallSeconds"],
                                 "phase_seconds": served.cold_res["phaseSeconds"]}
-    return scen, chaos
+    for line in lines[2:]:
+        line["reduced"] = {
+            "n_iters": [20, WARM_RUN_WINDOWS],
+            "why": "the smoke's 1200 s clock; the entry point runs the JAX run's 20",
+        }
+    lines[3]["reduced"]["cold_repeat"] = (
+        "dropped: the cold leg is read off the shared cold Propose (the port compiles "
+        "nothing on a first Propose, so its repeat only re-measures a 20 s solve)")
+    return tuple(lines)
+
+
+def check_warm_run(line: dict) -> None:
+    """The steady and wire phases' gates: the run's own (every window
+    verified and warm-started, no kernel build in the measured loop; the
+    wire's cold result verified), the windows asked for, and a launch of
+    the kernel in every measured window."""
+    name = line["phase"]
+    if line["n_iters"] != WARM_RUN_WINDOWS:
+        fail(f"{name}: ran {line['n_iters']} windows")
+    if any(n == 0 for n in line["launches_per_window"]):
+        fail(f"{name}: a window never launched the broker_aggregates kernel: "
+             f"{line['launches_per_window']}")
+    if not line["verified"]:
+        fail(f"{name}: not verified: warm {line['all_warm_started']}, compiles "
+             f"{line['compile_cache']}, {line.get('warm') or line.get('warm_ms')}")
 
 
 def check_scenario(line: dict) -> None:
-    """Phase 13's gates: the run's own (``verified``), then a launch of the
+    """Phase 14's gates: the run's own (``verified``), then a launch of the
     kernel in every family and no kernel build in the measured loop."""
     if len(line["families"]) != 5 or line["n_windows"] != SCENARIO_WINDOWS:
         fail(f"scenario: ran {list(line['families'])} x {line['n_windows']} windows")
@@ -1627,7 +1779,7 @@ def check_scenario(line: dict) -> None:
 
 
 def check_chaos(line: dict, scenarios) -> None:
-    """Phase 14's gates: the run's own (``verified``), then every seam of the
+    """Phase 15's gates: the run's own (``verified``), then every seam of the
     schedule fired, a launch of the kernel in every faulted window and no
     kernel build in its measured loops."""
     seams = {rule.split("@")[0] for spec, _ in scenarios for rule in spec.split(";")}
@@ -1650,7 +1802,7 @@ def check_chaos(line: dict, scenarios) -> None:
 
 
 def soak_phase(dev, agg_op) -> dict:
-    """Phase 15 (module docstring): its line."""
+    """Phase 18 (module docstring): its line."""
     import torch
 
     from ccx_torch.bench import runs
@@ -1686,7 +1838,7 @@ def soak_phase(dev, agg_op) -> dict:
 
 
 def check_soak(line: dict) -> None:
-    """Phase 15's gates: every gate of the run but the fleet-minutes one
+    """Phase 18's gates: every gate of the run but the fleet-minutes one
     (reduced), one episode per injection that fired and recovered, every
     window served and launching the kernel."""
     effort = line["effort"]
@@ -1718,7 +1870,7 @@ def check_soak(line: dict) -> None:
 
 
 def steady_fleet_phase(dev, agg_op) -> dict:
-    """Phase 16 (module docstring): its line."""
+    """Phase 19 (module docstring): its line."""
     import torch
 
     from ccx_torch import rungs
@@ -1749,7 +1901,7 @@ def steady_fleet_phase(dev, agg_op) -> dict:
 
 
 def check_steady_fleet(line: dict) -> None:
-    """Phase 16's gates: the run's own (``verified``), the scheduler's
+    """Phase 19's gates: the run's own (``verified``), the scheduler's
     settings restored, and the measured loop's launches."""
     if not line["scheduler_restored"]:
         fail("steady-fleet: the scheduler's settings were not restored")
@@ -1765,6 +1917,47 @@ def check_steady_fleet(line: dict) -> None:
         fail(f"steady-fleet: not verified: verified {line['all_verified']}, warm "
              f"{line['all_warm_started']}, compiles {line['compile_cache']}, devmem "
              f"{line['devmem']['budget_respected']}")
+
+
+def plan_phase(dev, agg_op) -> dict:
+    """Phase 20 (module docstring): its line."""
+    import torch
+
+    from ccx_torch.bench import ab
+
+    torch.cuda.synchronize()
+    agg_op.LAUNCHES = 0
+    t = time.monotonic()
+    line = ab.run_plan(PLAN_CONFIG, "B3", PLAN_EVAC_WINDOWS, device=dev,
+                       replan_iters=PLAN_REPLAN_ITERS)
+    torch.cuda.synchronize()
+    line.update(phase="plan", phase_seconds=time.monotonic() - t, path_launches=agg_op.LAUNCHES,
+                reduced={"config": ["B5", PLAN_CONFIG], "evac_windows": [4, PLAN_EVAC_WINDOWS],
+                         "replan_iters": [2 * line["max_waves"], PLAN_REPLAN_ITERS],
+                         "why": "the smoke's 1200 s clock: the device loop is launch-bound at "
+                                "about 1.9 ms a diff row, 100-130 s for B5's 53k-row cold diff "
+                                "on an H100 (the script took 1201 s with it); --plan B5 runs B5"})
+    return line
+
+
+def check_plan(line: dict) -> None:
+    """Phase 20's gates: the run's own (planned no worse than naive on the
+    cold diff and the evacuation total, the device loop and the cost tier
+    equal to the oracle, every optimize verified, no build in the re-plan
+    loop), the loop's cut honoured, and a launch of the kernel in the cold
+    optimize and the evacuation."""
+    launches = line["launches"]["broker_aggregates"]
+    for phase in ("cold", "evacuation"):
+        if launches[phase] == 0:
+            fail(f"plan: the {phase} phase never launched the broker_aggregates kernel")
+    replan = line["replan"]
+    if replan["iters"] > PLAN_REPLAN_ITERS or (replan["iters"] < PLAN_REPLAN_ITERS
+                                              and not replan["done"]):
+        fail(f"plan: the re-plan loop ran {replan['iters']} plans of {PLAN_REPLAN_ITERS}")
+    if not line["verified"]:
+        fail(f"plan: not verified: cold {line['cold_verified']} {line['cold_ab']}, cost tier "
+             f"{line['cost_tier']}, evacuation {line['evacuation']}, builds "
+             f"{line['fresh_compiles_in_replan']}")
 
 
 def exchange_on_card(dev) -> dict:
@@ -1935,8 +2128,13 @@ def main() -> None:
         checks[name] = {"P": m.P, "B": m.B, "T": m.num_topics, "D": m.D}
         for rows in ("auto", *ROW_WAYS):
             got = agg_op.broker_aggregates_cuda(m, rows)
+            again = agg_op.broker_aggregates_cuda(m, rows)
             torch.cuda.synchronize()
-            checks[name][rows] = {"plan": agg_op.plan(m, rows),
+            for f in (*FLOAT_FIELDS, *INT_FIELDS):
+                if not torch.equal(getattr(got, f), getattr(again, f)):
+                    fail(f"{name} ({rows}): two calls on one model differ on {f}")
+            del again
+            checks[name][rows] = {"plan": agg_op.plan(m, rows), "repeat_bit_equal": True,
                                   "max_abs_err": compare_aggregates(got, ref)}
             for f in INT_FIELDS if same_as is not None else ():
                 if not torch.equal(getattr(got, f), getattr(same_as, f)):
@@ -2036,7 +2234,7 @@ def main() -> None:
             base = res
         del res, replain
 
-    # --- 6, 7, 8. the warm path, a structural window and the ladder -----------
+    # --- 6, 7, 8. the warm path, a structural window and the exchange A/B -----
     goal_names, opts, _ = build_opts("B5", "target")
     line, snap, session = warm_path(b5, base, cfg, goal_names, opts, agg_op)
     launches["warm"] = line["launches"]["broker_aggregates"]
@@ -2047,11 +2245,12 @@ def main() -> None:
     launches["structural"] = line["launches"]["broker_aggregates"]
     emit(line)
     repaired, _ = hard_repair(b5, cfg, goal_names)
-    line = ladder_run(repaired, cfg, goal_names, opts, agg_op)
-    launches["ladder"] = line["launches"]["broker_aggregates"]
+    line = exchange_ab_phase(repaired, goal_names, opts, agg_op)
+    launches["exchange-ab"] = line["path_launches"]
     emit(line)
+    check_exchange_ab(line)
 
-    # --- 9, 10, 11. the sidecar serving path, every option, the fleet ----------
+    # --- 9-12. the sidecar serving path, every option, the fleet, the fleet run -
     line, served, per_propose = sidecar_serve(b5, agg_op, packages["grpc"] is not None)
     launches["sidecar-serve"] = line["launches"]["broker_aggregates"]
     emit(line)
@@ -2063,8 +2262,12 @@ def main() -> None:
     line = fleet_phase(dev, agg_op)
     launches["fleet"] = line["launches"]["broker_aggregates"]
     emit(line)
+    line = fleet_run_phase(dev, agg_op)
+    launches["fleet-run"] = line["path_launches"]
+    emit(line)
+    check_fleet_run(line)
 
-    # --- 12. the service layer: B5 behind the REST API -------------------------
+    # --- 13. the service layer: B5 behind the REST API -------------------------
     line = service_phase(dev, agg_op, "B5", bench_spec("B5"), walls["target"])
     launches["service"] = line["launches"]["broker_aggregates"]
     per_service = {"dry_run": line["dry_run"]["launches"],
@@ -2076,21 +2279,25 @@ def main() -> None:
         if per_service[what] == 0:
             fail(f"service: the {what} never launched the broker_aggregates kernel")
 
-    # --- 13, 14. the scenario corpus and the chaos run through the sidecar -----
+    # --- 14-17. the scenario corpus, the chaos run, the steady loop and the wire
+    # split, from one cold Propose through the sidecar ---------------------------
     from ccx_torch.bench.runs import CHAOS_SCENARIOS
 
-    scen, chaos = scenario_and_chaos(dev, agg_op)
-    launches["scenario"] = scen["path_launches"]
-    launches["chaos"] = chaos["path_launches"]
+    scen, chaos, steady, wire = served_b5_phases(dev, agg_op)
+    for line in (scen, chaos, steady, wire):
+        launches[line["phase"]] = line["path_launches"]
     per_family = {fam: f["launches"]["broker_aggregates"] for fam, f in scen["families"].items()}
     per_chaos_window = [w["launches"] for w in chaos["windows"]]
     emit(scen)
     check_scenario(scen)
     emit(chaos)
     check_chaos(chaos, CHAOS_SCENARIOS)
-    del scen, chaos
+    for line in (steady, wire):
+        emit(line)
+        check_warm_run(line)
+    del scen, chaos, steady, wire
 
-    # --- 15, 16. the soak and the steady fleet at B3 through the sidecar --------
+    # --- 18, 19. the soak and the steady fleet at B3 through the sidecar --------
     soak = soak_phase(dev, agg_op)
     launches["soak"] = soak["path_launches"]
     per_soak = {"window": sorted({w["launches"] for w in soak["window_detail"]}),
@@ -2105,7 +2312,13 @@ def main() -> None:
     check_steady_fleet(fleet_line)
     del soak, fleet_line
 
-    # --- 17. result check: the card against the CPU ---------------------------
+    # --- 20. the movement-plan A/B at B5 and the disk-evacuation family -------
+    line = plan_phase(dev, agg_op)
+    launches["plan"] = line["path_launches"]
+    emit(line)
+    check_plan(line)
+
+    # --- 21. result check: the card against the CPU ---------------------------
     small = random_cluster(bench_spec("B3"), device=dev)
     host = model_from_arrays(model_arrays(small), small.num_topics, small.num_racks, "cpu")
     s_dev = evaluate_stack(small, cfg, DEFAULT_GOAL_ORDER)
@@ -2118,7 +2331,7 @@ def main() -> None:
           "cpu_equal": card_against_cpu(dev), "exchange_equal": exchange_on_card(dev),
           "warm_window_equal": warm_window_on_card(dev)})
 
-    # --- 18. B6's check and the kernel times, after the paths; the times
+    # --- 22. B6's check and the kernel times, after the paths; the times
     # last of the two (once torch.profiler has traced the card, every later
     # launch in the process pays for the tracing) ------------------------------
     t = time.monotonic()
@@ -2147,27 +2360,29 @@ def main() -> None:
           "plan": agg_op.plan(served), **serve_times})
     del served
 
-    # --- 19. profile -----------------------------------------------------------
+    # --- 23. profile -----------------------------------------------------------
+    def windows(k: int):
+        return (dataclasses.replace(opts.anneal, n_steps=k),
+                dataclasses.replace(opts.polish, max_iters=k, patience=k),
+                SwapPolishOptions(n_swap_candidates=64, n_lead_candidates=64, max_iters=k,
+                                  patience=k))
+
     k = PROFILE_STEPS
-    single = dataclasses.replace(opts.anneal, n_steps=k, p_swap=0.0)
-    batched = dataclasses.replace(opts.anneal, n_steps=k)
-    polish = dataclasses.replace(opts.polish, max_iters=k, patience=k)
-    swap = SwapPolishOptions(n_swap_candidates=64, n_lead_candidates=64, max_iters=k, patience=k)
-    for warm in (single, batched):
-        anneal(repaired, cfg, goal_names, dataclasses.replace(warm, n_steps=1))
+    batched, polish, swap = windows(k)
+    anneal(repaired, cfg, goal_names, dataclasses.replace(batched, n_steps=1))
     warm_opts = dataclasses.replace(opts, incremental=steady_options(), plan_enabled=True)
     if STORE.get(session) is None:
         fail("profile: the warm path's base is gone; its window would run cold")
+    s_batched, s_polish, s_swap = windows(SYNC_STEPS)
     syncs = {
-        "anneal_batched": host_syncs(lambda: anneal(repaired, cfg, goal_names, batched)),
-        "polish": host_syncs(lambda: greedy_optimize(repaired, cfg, goal_names, polish)),
-        "swap_polish": host_syncs(lambda: swap_polish(repaired, cfg, goal_names, swap)),
+        "anneal_batched": host_syncs(lambda: anneal(repaired, cfg, goal_names, s_batched)),
+        "polish": host_syncs(lambda: greedy_optimize(repaired, cfg, goal_names, s_polish)),
+        "swap_polish": host_syncs(lambda: swap_polish(repaired, cfg, goal_names, s_swap)),
         "warm_window": host_syncs(lambda: optimize(snap, cfg, goal_names, warm_opts,
                                                    warm_start=STORE.get(session))),
     }
     emit({"phase": "profile", "model": "B5 after hard_repair", "host_syncs_per_call": syncs,
-          "anneal": {"steps": k, "moves_per_step": single.moves_per_step, "p_swap": 0.0,
-                     **device_busy(lambda: anneal(repaired, cfg, goal_names, single))},
+          "sync_steps": SYNC_STEPS,
           "polish": {"iters": k, **device_busy(
               lambda: greedy_optimize(repaired, cfg, goal_names, polish))},
           "anneal_batched": {"steps": k, "moves_per_step": batched.moves_per_step,
@@ -2179,7 +2394,7 @@ def main() -> None:
               lambda: optimize(snap, cfg, goal_names, warm_opts,
                                warm_start=STORE.get(session)))}})
 
-    # --- 20. summary lines -----------------------------------------------------
+    # --- 24. summary lines -----------------------------------------------------
     if options_bound_ms != times["bound_ms"]:
         fail(f"the costModel's broker-aggregates bound {options_bound_ms} ms differs from the "
              f"kernel line's {times['bound_ms']} ms")
