@@ -9,9 +9,14 @@
     python -m ccx_torch.bench --wire B5 [--iters N]
     python -m ccx_torch.bench --plan B5 [--evac CONFIG] [--evac-windows N] [--replan-iters N]
     python -m ccx_torch.bench --exchange-ab B3
+    python -m ccx_torch.bench --ladder B5 [--samples N]
+    python -m ccx_torch.bench --scaling B6 [--samples N]
+    python -m ccx_torch.bench --mesh B5
 
-Each prints its JSON line (``ccx_torch.bench.runs``, ``.serving``, ``.ab``)
-and exits non-zero when a gate failed. The environment twins of the JAX
+Each prints its JSON line (``ccx_torch.bench.runs``, ``.serving``, ``.ab``,
+``.ladder``) and exits non-zero when a gate failed; ``--ladder`` prints one
+line per rung, then the final rung's again, and fails when a rung is
+unverified. The environment twins of the JAX
 bench set the defaults: ``CCX_SCENARIO_WINDOWS``, ``CCX_SCENARIO_SEED``,
 ``CCX_SCENARIO_FAMILIES``, ``CCX_BENCH_CHAOS_ITERS`` (14),
 ``CCX_FAULTS_SEED``, ``CCX_SOAK_CLUSTERS`` (2), ``CCX_SOAK_TICKS`` (96),
@@ -24,7 +29,9 @@ themselves read ``CCX_SOAK_INJECT_START``, ``CCX_SOAK_INJECT_EVERY``,
 ``CCX_FLEET_MAX_CONCURRENT``, ``CCX_FLEET_DISPATCH_WIDTH``, ``CCX_PLAN_*``
 (``ab.plan_knobs``) and ``CCX_EXCHANGE_*`` (``ab.exchange_knobs``).
 ``--replan-iters`` caps the plan's re-plan loop (default its bound, twice
-the planner's waves). All run on the CUDA device, which is probed first
+the planner's waves). The ladder and the mesh modes read the JAX bench's
+``CCX_BENCH_*`` knobs (``ccx_torch.bench.ladder``); ``--samples`` (default
+1) sets their timed runs per rung or layout. All run on the CUDA device, which is probed first
 (``ccx_torch.device.ensure_responsive_backend``: a failed or hung card
 raises; there is no CPU fallback). ``--device cpu`` runs them on the host.
 """
@@ -74,6 +81,14 @@ def main(argv=None) -> int:
                      help="run the movement-plan A/B on config CONFIG (B1..B6)")
     run.add_argument("--exchange-ab", metavar="CONFIG",
                      help="run the replica-exchange A/B on config CONFIG (B1..B6)")
+    run.add_argument("--ladder", metavar="CONFIG",
+                     help="run the default effort ladder on config CONFIG (B1..B6)")
+    run.add_argument("--scaling", metavar="CONFIG",
+                     help="run the mesh scaling curve on config CONFIG (B1..B6)")
+    run.add_argument("--mesh", metavar="CONFIG",
+                     help="run the sharded SA step slope on config CONFIG (B1..B6)")
+    ap.add_argument("--samples", type=int, default=1,
+                    help="warm runs per ladder rung or timed runs per scaling layout (default 1)")
     ap.add_argument("--windows", type=int, default=None,
                     help="windows per family (default: optimizer.scenario.windows, 4) or "
                          "per steady-fleet cluster (default 10)")
@@ -103,13 +118,23 @@ def main(argv=None) -> int:
 
     import torch
 
-    from ccx_torch.bench import ab, runs, serving
+    from ccx_torch.bench import ab, ladder, runs, serving
     from ccx_torch.device import ensure_responsive_backend, resolve_device
 
     device = resolve_device(args.device)
     if device.type == "cuda":
         ensure_responsive_backend()
-    if args.scenario:
+    if args.ladder:
+        lines = ladder.run_ladder(args.ladder, args.samples, device=device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        print(json.dumps(lines[-1]), flush=True)
+        return 0 if all(ln["verified"] for ln in lines) else 1
+    if args.scaling:
+        out = ladder.run_scaling(args.scaling, args.samples, device=device)
+    elif args.mesh:
+        out = ladder.run_mesh_bench(args.mesh, device=device)
+    elif args.scenario:
         families = tuple(f.strip() for f in args.families.split(",") if f.strip())
         out = runs.run_scenario(
             args.scenario, windows=_pick(args.windows, "CCX_SCENARIO_WINDOWS", None),

@@ -195,12 +195,18 @@ def analyzer_config_def() -> ConfigDef:
              "the same chunk contract with per-chunk heartbeats.",
              at_least(0))
     d.define("optimizer.mesh.enabled", Type.BOOLEAN, False, Importance.MEDIUM,
-             "Run the SA search sharded over several CUDA devices. The "
-             "port has no multi-GPU sharding yet: with fewer than two "
-             "visible CUDA devices the search runs on one device and "
-             "AnalyzerState reports meshShape null; with two or more the "
-             "facade refuses the run (ConfigException) until the "
-             "sharding slice lands.")
+             "Run the SA search over a device mesh "
+             "(ccx_torch.parallel.sharding): chains ride the mesh as data "
+             "parallelism and optimizer.mesh.parts > 1 additionally shards "
+             "the model's partition axis inside the search — the B6-scale "
+             "(10k brokers / 1M partitions) axis. The mesh path is "
+             "chunk-driven like the one-device anneal (per-chunk "
+             "flight-recorder heartbeats, cost capture); the winning "
+             "placement is joined onto the model's device so every later "
+             "pipeline phase runs as on one device. The mesh's devices are "
+             "ccx_torch.common.vmesh.devices(): the visible CUDA devices, "
+             "or a virtual mesh forced over one. Ignored with a log note "
+             "when fewer than two devices are visible.")
     d.define("optimizer.mesh.devices", Type.INT, 0, Importance.LOW,
              "Devices for the optimizer mesh; 0 = all visible devices.",
              at_least(0))

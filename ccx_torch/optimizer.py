@@ -48,9 +48,12 @@ phase runs under a named profiler range (``ccx_torch.common.profiling``).
 
 It runs on the model's device (build the model on CUDA, the default, or pass
 ``device="cpu"`` to the model builder). ``OptimizeOptions`` carries the JAX
-package's defaults for every field it has. The JAX package's device mesh is
-not part of this pipeline; ``OptimizerResult.to_json`` leaves out its key
-(``mesh``).
+package's defaults for every field it has. With ``mesh_enabled`` the SA
+phase runs over a device mesh (``ccx_torch.parallel.sharding``) built from
+``ccx_torch.common.vmesh.devices()`` by the JAX package's rule
+(``_make_run_mesh``); the result then carries ``mesh`` (its shape, device
+count and ``shardedPrograms``), and every later stage runs on the model's
+device.
 """
 
 from __future__ import annotations
@@ -144,6 +147,17 @@ class OptimizeOptions:
     #: the warm pipeline's knobs (``optimize(warm_start=...)``); inert on
     #: cold runs
     incremental: IncrementalOptions = dataclasses.field(default_factory=IncrementalOptions)
+    #: run the SA phase over a device mesh (``optimizer.mesh.enabled``):
+    #: chains ride the mesh as data parallelism and, with ``mesh_parts >
+    #: 1``, the model's partition axis is sharded inside the search
+    #: (``ccx_torch.parallel.sharding``); chunk-driven like the one-device
+    #: anneal. Fewer than two devices run single-device, logged
+    mesh_enabled: bool = False
+    #: devices of the mesh; 0: every device ``vmesh.devices()`` lists
+    mesh_devices: int = 0
+    #: partition-axis factor of the mesh (chains = devices // parts); 1:
+    #: chains-only data parallelism
+    mesh_parts: int = 1
     #: wave-schedule the diff into a movement plan (``OptimizerResult.plan``)
     plan_enabled: bool = False
     #: break a lexicographic tie in the portfolio by (bytes moved, peak
@@ -194,6 +208,9 @@ class OptimizerResult:
     span_tree: dict | None = None
     #: the cost ledger's rollup of this call (``costmodel.cost_model_json``)
     cost_model: dict | None = None
+    #: mesh-sharded runs: ``{"meshShape": {"chains", "parts"}, "devices",
+    #: "shardedPrograms"}`` (``sharding.program_cache_stats``), else None
+    mesh: dict | None = None
 
     @property
     def stats_before(self) -> ClusterModelStats | None:
@@ -248,7 +265,7 @@ class OptimizerResult:
         include_goal_summary: bool = True,
     ) -> dict:
         """The result block of the sidecar's wire, keyed as the JAX
-        package's (``mesh`` is never present).
+        package's (``mesh`` on mesh-sharded runs only).
         ``include_stats=False`` omits the ClusterModelStats blocks (each an
         aggregates launch and a host copy; the sidecar omits them from warm
         results); ``include_proposals=False`` omits the per-row dicts
@@ -287,6 +304,7 @@ class OptimizerResult:
             ("incremental", self.incremental),
             ("convergence", self.convergence),
             ("costModel", self.cost_model),
+            ("mesh", self.mesh),
         ):
             if val:
                 out[key] = val
@@ -515,14 +533,42 @@ class _BackgroundRepair:
         return self._box["res"]
 
 
+def _make_run_mesh(opts: OptimizeOptions, device: torch.device):
+    """The run's mesh from ``opts.mesh_*`` over the devices of
+    ``vmesh.devices()`` of ``device``'s type (None: run single-device).
+
+    The JAX package's rule: fewer than two devices run single-device, and a
+    ``parts`` that does not divide the device count becomes chains-only
+    (``parts=1``); both are logged."""
+    import logging
+
+    from ccx_torch.common import vmesh
+    from ccx_torch.parallel.sharding import make_mesh
+
+    log = logging.getLogger(__name__)
+    devices = [d for d in vmesh.devices() if d.type == device.type]
+    if opts.mesh_devices > 0:
+        devices = devices[: opts.mesh_devices]
+    if len(devices) < 2:
+        log.warning("optimizer.mesh.enabled but only %d device(s) visible; running single-device",
+                    len(devices))
+        return None
+    parts = max(int(opts.mesh_parts), 1)
+    if len(devices) % parts:
+        log.warning("optimizer.mesh.parts=%d does not divide %d devices; falling back to "
+                    "chains-only (parts=1)", parts, len(devices))
+        parts = 1
+    return make_mesh(devices, parts=parts)
+
+
 def _anneal_overlapped(m, cfg, goal_names, anneal_opts: AnnealOptions, run: _Run,
-                       bg: _BackgroundRepair):
+                       bg: _BackgroundRepair, mesh=None):
     """The first SA chunk anneals the unrepaired ``m`` while ``bg`` repairs
     it; the lexicographically better of the two anneals the remaining steps
     (seed + 1). Returns (the SA result, the repair moves it carries)."""
     chunk = anneal_opts.chunk_steps
     # no hot list is passed: anneal() lists the unrepaired input's offenders
-    sa1 = anneal(m, cfg, goal_names, dataclasses.replace(anneal_opts, n_steps=chunk))
+    sa1 = anneal(m, cfg, goal_names, dataclasses.replace(anneal_opts, n_steps=chunk), mesh=mesh)
     run.tally(sa1, "anneal")
     repaired, n_repair = bg.result(run)
     if _lex_better(sa1.stack_after, evaluate_stack(repaired, cfg, goal_names)):
@@ -531,7 +577,7 @@ def _anneal_overlapped(m, cfg, goal_names, anneal_opts: AnnealOptions, run: _Run
     else:
         start, n_sa1 = repaired, 0
     sa = anneal(start, cfg, goal_names, dataclasses.replace(
-        anneal_opts, n_steps=anneal_opts.n_steps - chunk, seed=anneal_opts.seed + 1))
+        anneal_opts, n_steps=anneal_opts.n_steps - chunk, seed=anneal_opts.seed + 1), mesh=mesh)
     return dataclasses.replace(sa, n_accepted=sa.n_accepted + n_sa1), n_repair
 
 
@@ -560,14 +606,16 @@ def _optimize_cold(
     )
     with phase("stack-before"):
         stack_before = evaluate_stack(m, cfg, goal_names)
+    mesh = _make_run_mesh(opts, m.device) if opts.mesh_enabled else None
+    mesh_attrs = {"mesh": mesh.shape} if mesh is not None else {}
     if overlap:
         # the repair phase starts the thread; the first anneal chunk runs
         # beside it and the anneal phase joins it
         with phase("repair", backend=backend, overlap=True):
             bg = _BackgroundRepair(m, cfg, goal_names, backend)
         try:
-            with phase("anneal"):
-                sa, n_polish = _anneal_overlapped(m, cfg, goal_names, opts.anneal, run, bg)
+            with phase("anneal", **mesh_attrs):
+                sa, n_polish = _anneal_overlapped(m, cfg, goal_names, opts.anneal, run, bg, mesh)
         finally:
             # never leave the thread running past a failed or cancelled anneal
             bg.join()
@@ -576,8 +624,8 @@ def _optimize_cold(
             model, n_polish = hard_repair(m, cfg, goal_names, backend=backend)
         with phase("hot-list"):
             evac = hot_partition_list(model, goal_names, cfg) if inter else None
-        with phase("anneal"):
-            sa = anneal(model, cfg, goal_names, opts.anneal, evac=evac)
+        with phase("anneal", **mesh_attrs):
+            sa = anneal(model, cfg, goal_names, opts.anneal, evac=evac, mesh=mesh)
     tally(sa, "anneal")
     model, stack_after = sa.model, sa.stack_after
     with phase("polish"):
@@ -711,7 +759,18 @@ def _optimize_cold(
         convergence=run.convergence(goal_names),
         plan=plan,
         input_model=m,
+        mesh=_mesh_info(mesh),
     )
+
+
+def _mesh_info(mesh) -> dict | None:
+    """The result's ``mesh`` block (the JAX package's keys)."""
+    if mesh is None:
+        return None
+    from ccx_torch.parallel.sharding import program_cache_stats
+
+    return {"meshShape": mesh.shape, "devices": int(mesh.size),
+            "shardedPrograms": program_cache_stats()}
 
 
 def _optimize_warm(

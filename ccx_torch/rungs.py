@@ -21,11 +21,17 @@ fleet rung's cold Propose keys, ``drift_metrics`` its drift
 rule for one metrics window, and ``wire_options`` a rung's options as a
 sidecar Propose's ``options`` map.
 
-The bench's environment overrides (chains, steps, moves, polish iterations,
-the portfolio switch) and its device mesh are not part of this copy.
+The bench's environment overrides apply as in ``bench.py``, never at the
+smoke rung: ``CCX_BENCH_CHAINS``, ``CCX_BENCH_STEPS``, ``CCX_BENCH_MOVES`` and
+``CCX_BENCH_POLISH_ITERS`` set the effort, ``CCX_BENCH_PORTFOLIO=0`` drops
+the portfolio from the ``custom`` rung, and ``CCX_BENCH_SHARDED=1`` runs the
+SA phase over the device mesh (``mesh_enabled``; ``CCX_BENCH_SHARDED_PARTS``
+its ``mesh_parts``, default chains-only).
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -51,7 +57,13 @@ def build_opts(name: str, rung: str) -> tuple[tuple[str, ...], OptimizeOptions, 
     goal_names = (
         ("StructuralFeasibility", "ReplicaDistributionGoal") if name == "B1" else DEFAULT_GOAL_ORDER
     )
+    smoke = rung == "smoke"
     n_chains, n_steps, moves, polish_iters = RUNGS[rung]
+    if not smoke:
+        n_chains = int(os.environ.get("CCX_BENCH_CHAINS", n_chains))
+        n_steps = int(os.environ.get("CCX_BENCH_STEPS", n_steps))
+        moves = int(os.environ.get("CCX_BENCH_MOVES", moves))
+        polish_iters = int(os.environ.get("CCX_BENCH_POLISH_ITERS", polish_iters))
     if rung == "target":
         stages = {"topic_rebalance_rounds": 0, "leader_pass_max_iters": 100}
     elif rung in ("lean", "custom"):
@@ -73,12 +85,15 @@ def build_opts(name: str, rung: str) -> tuple[tuple[str, ...], OptimizeOptions, 
         # a flat chunked run equals the one-loop run
         anneal=AnnealOptions(
             n_chains=n_chains, n_steps=n_steps, moves_per_step=moves, seed=42,
-            chunk_steps=0 if rung == "smoke" else 250,
+            chunk_steps=0 if smoke else 250,
         ),
         polish=GreedyOptions(
             n_candidates=256, max_iters=polish_iters, patience=8 if rung == "target" else 16
         ),
-        run_cold_greedy=rung in ("full", "custom"),
+        run_cold_greedy=rung == "full" or (
+            rung == "custom" and os.environ.get("CCX_BENCH_PORTFOLIO") != "0"),
+        mesh_enabled=not smoke and os.environ.get("CCX_BENCH_SHARDED") == "1",
+        mesh_parts=int(os.environ.get("CCX_BENCH_SHARDED_PARTS", "1")),
         **stages,
     )
     return goal_names, opts, effort_of(opts)
@@ -89,6 +104,7 @@ def effort_of(opts: OptimizeOptions) -> dict:
     return {
         "chains": opts.anneal.n_chains, "steps": opts.anneal.n_steps,
         "moves": opts.anneal.moves_per_step, "polish_iters": opts.polish.max_iters,
+        **({"mesh": [opts.mesh_devices or "all", opts.mesh_parts]} if opts.mesh_enabled else {}),
         "portfolio": opts.run_cold_greedy,
         "trd_rounds": opts.topic_rebalance_rounds,
         "swap_polish": [opts.swap_polish_iters, opts.swap_polish_post_iters],

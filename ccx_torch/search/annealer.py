@@ -711,6 +711,57 @@ def _chain_temp(temperature, chain: torch.Tensor):
     return temperature[chain.long()] if torch.is_tensor(temperature) else temperature
 
 
+@dataclasses.dataclass
+class SingleMoveDraws:
+    """Draws of one single-move proposal per chain (the ``single``
+    engine's sub-step)."""
+
+    part: PartitionDraws
+    single: SingleDraws
+    u_acc: torch.Tensor      # float32[C] in [1e-12, 1): Metropolis uniform
+
+
+def draw_single_move(
+    gen: torch.Generator, C: int, m: TensorClusterModel, pp: ProposalParams, n_evac: int
+) -> SingleMoveDraws:
+    return SingleMoveDraws(
+        part=draw_partitions(gen, C, pp, n_evac, m.device),
+        single=draw_single(gen, C, m, pp),
+        u_acc=_uniform(gen, (C,), m.device, 1e-12),
+    )
+
+
+def _single_move(
+    state: SearchState,
+    d: SingleMoveDraws,
+    temperature: float | torch.Tensor,
+    evac: torch.Tensor,
+    n_evac: int,
+    *,
+    m: TensorClusterModel,
+    pp: ProposalParams,
+    hard_arr: torch.Tensor,
+    weights: torch.Tensor,
+    scorer,
+    group,
+    gather=gather_views,
+    place=None,
+) -> None:
+    """One single-move proposal on every chain, scored against the current
+    state. ``gather``/``place`` read and write the placement rows (the
+    partition-sharded engine passes its owner gather and owner write)."""
+    C = state.n_chains
+    chains = torch.arange(C, device=m.device)
+    p, use_evac = _draw_partition(d.part, pp, evac, n_evac)
+    view = gather(state, m, chains, p)
+    old, new, feasible = _single_plan(d.single, state, chains, m, pp, view, use_evac)
+    delta = scorer(state, chains, view, old, new)
+    accept = feasible & lex_accept(state.cost_vec, delta.cost_vec, hard_arr, weights, temperature,
+                                   d.u_acc)
+    apply_move(state, m, chains, p, view, old, new, delta, accept, group=group, place=place)
+    bump_kind_counters(state, chains, KIND_SINGLE, 1, accept)
+
+
 def _anneal_step(
     state: SearchState,
     gen: torch.Generator,
@@ -728,17 +779,10 @@ def _anneal_step(
 ) -> None:
     """``moves_per_step`` sequential proposals on every chain at once: each
     scores against the state the previous one left."""
-    C = state.n_chains
-    chains = torch.arange(C, device=m.device)
     for _ in range(moves_per_step):
-        p, use_evac = _draw_partition(draw_partitions(gen, C, pp, n_evac, m.device), pp, evac, n_evac)
-        view = gather_views(state, m, chains, p)
-        old, new, feasible = _single_plan(draw_single(gen, C, m, pp), state, chains, m, pp, view, use_evac)
-        delta = scorer(state, chains, view, old, new)
-        u = _uniform(gen, (C,), m.device, 1e-12)
-        accept = feasible & lex_accept(state.cost_vec, delta.cost_vec, hard_arr, weights, temperature, u)
-        apply_move(state, m, chains, p, view, old, new, delta, accept, group=group)
-        bump_kind_counters(state, chains, KIND_SINGLE, 1, accept)
+        d = draw_single_move(gen, state.n_chains, m, pp, n_evac)
+        _single_move(state, d, temperature, evac, n_evac, m=m, pp=pp, hard_arr=hard_arr,
+                     weights=weights, scorer=scorer, group=group)
 
 
 @dataclasses.dataclass
@@ -795,18 +839,20 @@ def _unified_move(
     weights: torch.Tensor,
     swap_scorer,
     group,
+    gather=gather_views,
+    place=None,
 ) -> None:
     """One proposal on every chain through the two-partition path: a swap
     with probability ``swap_share``, else a single move with an inert
     partner (the partner may equal the moved partition; its writes are
-    dropped)."""
+    dropped). ``gather``/``place`` as in ``_single_move``."""
     C = state.n_chains
     chains = torch.arange(C, device=m.device)
     use_swap = d.u_sel < swap_share
     p_single, use_evac = _draw_partition(d.part, pp, evac, n_evac)
     pa = torch.where(use_swap, d.p1.long(), p_single)
     pb = d.p2.long()
-    views = gather_views(state, m, torch.cat([chains, chains]), torch.cat([pa, pb]))
+    views = gather(state, m, torch.cat([chains, chains]), torch.cat([pa, pb]))
     va, vb = view_rows(views, slice(0, C)), view_rows(views, slice(C, 2 * C))
     _, new_s, feas_s = _single_plan(d.single, state, chains, m, pp, va, use_evac & ~use_swap)
     _, n1w, _, n2w, ok_w, is_lead = _swap_plan(d.swap, m, pp, pa, va, pb, vb)
@@ -819,7 +865,7 @@ def _unified_move(
     accept = feasible & lex_accept(state.cost_vec, delta.cost_vec, hard_arr, weights, temperature, d.u_acc)
     apply_swap(
         state, m, chains, pa, va, olda, newa, pb, vb, oldb, newb, delta, accept,
-        group=group, active2=use_swap,
+        group=group, active2=use_swap, place=place,
     )
     kind = torch.where(use_swap, torch.where(is_lead, KIND_LEADERSHIP_SWAP, KIND_REPLICA_SWAP), KIND_SINGLE)
     bump_kind_counters(state, chains, kind, 1, accept)
@@ -936,6 +982,8 @@ def _anneal_step_batched(
     vector_fn,
     group,
     cfg: GoalConfig,
+    gather=gather_views,
+    place=None,
 ) -> None:
     """``moves_per_step`` proposals per chain, drawn, scored and accepted
     against the step's base state, then applied as a disjoint batch.
@@ -948,7 +996,8 @@ def _anneal_step_batched(
     lexicographically no worse than the base (a descent) or than the base
     plus the members' own deltas (the exploration each member's Metropolis
     test sanctioned): a deterministic guard against the couplings that are
-    not sums (leader evenness, the TRD normalizer)."""
+    not sums (leader evenness, the TRD normalizer). ``gather``/``place``
+    as in ``_single_move``."""
     C, K = state.n_chains, moves_per_step
     N = C * K
     B, T, R = m.B, m.num_topics, m.R
@@ -970,7 +1019,7 @@ def _anneal_step_batched(
 
     # one stacked gather of all 2 * N * pool endpoint views
     chain_pool = chain.repeat_interleave(pool)
-    views = gather_views(
+    views = gather(
         state, m, torch.cat([chain_pool, chain_pool]),
         torch.cat([pool_a.reshape(-1), pool_b.reshape(-1)]),
     )
@@ -1077,7 +1126,7 @@ def _anneal_step_batched(
     state.n_accepted += torch.where(batch_ok, take.sum(1).int(), 0)
     write_a = tk & batch_ok[chain]
     write_b = write_a & use_swap
-    _placement_updates(
+    (place or _placement_updates)(
         state, group, torch.cat([chain, chain]), torch.cat([pa, pb]),
         torch.cat([va.topic, vb.topic]),
         write=torch.cat([write_a, write_b]),
@@ -1478,6 +1527,7 @@ def anneal(
     goal_names: tuple[str, ...] = DEFAULT_GOAL_ORDER,
     opts: AnnealOptions = AnnealOptions(),
     evac: tuple[torch.Tensor, int | torch.Tensor] | None = None,
+    mesh=None,
 ) -> AnnealResult:
     """Run SA on ``opts.n_chains`` chains and return the best chain's
     placement as a new model.
@@ -1489,7 +1539,27 @@ def anneal(
     ``hot_partition_list_device``; a tensor count is read once here).
 
     ``chunk_steps > 0`` runs the steps in chunks (module docstring); the
-    ladder rounds ``n_chains`` up to a multiple of ``n_temps``."""
+    ladder rounds ``n_chains`` up to a multiple of ``n_temps``.
+
+    With ``mesh`` (``ccx_torch.parallel.sharding.Mesh``) a ``parts`` axis
+    greater than 1 that divides the padded P hands the whole run to the
+    partition-axis-sharded engine (``sharding.sharded_anneal``: the same
+    draws, steps and acceptance rule, and with ``chunk_steps > 0`` the same
+    chunk drive). Otherwise the chains ride the mesh as data parallelism:
+    ``n_chains`` is rounded up to a multiple of the mesh's size (logged)
+    and the chains run on the model's device, which on the virtual mesh is
+    every logical device's physical one."""
+    if mesh is not None:
+        parts = mesh.shape.get("parts", 1)
+        if parts > 1:
+            if m.P % parts == 0:
+                from ccx_torch.parallel.sharding import sharded_anneal
+
+                return sharded_anneal(m, cfg, goal_names, opts, mesh, evac=evac)
+            logging.getLogger(__name__).warning(
+                "anneal: padded P=%d not divisible by mesh parts=%d; running chains-only data "
+                "parallelism over the %d devices", m.P, parts, mesh.size,
+            )
     stack_before = evaluate_stack(m, cfg, goal_names)
     p_real, b_real = real_sizes(m)
     evac_idx, n_evac = evac if evac is not None else hot_partition_list(m, goal_names, cfg)
@@ -1505,7 +1575,9 @@ def anneal(
             "anneal: n_temps=%d needs chunk_steps > 0 (exchange runs at chunk boundaries); "
             "the one-loop run stays flat", opts.n_temps,
         )
-    C = round_up_chains(opts.n_chains, 1, "anneal", n_temps=n_temps) if n_temps > 1 else opts.n_chains
+    C = opts.n_chains
+    if mesh is not None or n_temps > 1:
+        C = round_up_chains(C, mesh.size if mesh is not None else 1, "anneal", n_temps=n_temps)
     state = _chain_init(m, cfg, goal_names, group=group, n_chains=C)
     gen = torch.Generator(device=m.device)
     gen.manual_seed(opts.seed)

@@ -573,11 +573,26 @@ def _placement_updates(
     _masked_put(state.assignment, (c, p), rows, write)
     _masked_put(state.leader_slot, (c, p), leads, write)
     _masked_put(state.replica_disk, (c, p), disks, write)
+    mirror_updates(state, group, chain, ps, ts, mirror, rows, leads)
+
+
+def mirror_updates(
+    state: SearchState,
+    group: TopicGroup | None,
+    chain: torch.Tensor,
+    ps: torch.Tensor,
+    ts: torch.Tensor,
+    mirror: torch.Tensor,
+    rows: torch.Tensor,
+    leads: torch.Tensor,
+) -> None:
+    """The grouped-mirror half of ``_placement_updates`` (nothing when the
+    state carries no mirror)."""
     if state.grouped_assign is None:
         return
     if group is None:
         raise ValueError("state carries a grouped mirror; pass group=")
-    t = ts.long()
+    c, p, t = chain.long(), ps.long(), ts.long()
     j = group.member_slot[p].long()
     _masked_put(state.grouped_assign, (c, t, j), rows, mirror)
     _masked_put(state.grouped_leader, (c, t, j), leads, mirror)
@@ -594,10 +609,13 @@ def apply_move(
     delta: MoveDelta,
     accept: torch.Tensor,   # bool[K]
     group: TopicGroup | None = None,
+    place=None,
 ) -> None:
     """Apply the scored moves where ``accept``, in place; a rejected move
     changes nothing (its scatters carry weight 0 and its row writes are
-    dropped). ``chain`` entries must be distinct."""
+    dropped). ``chain`` entries must be distinct. ``place`` writes the
+    placement rows (default ``_placement_updates``; the partition-sharded
+    engine passes its owner write)."""
     af, ai = accept.float(), accept.int()
     scatter_partition(state.agg, m, chain, view, *old, -af, -ai)
     scatter_partition(state.agg, m, chain, view, *new, af, ai)
@@ -608,7 +626,7 @@ def apply_move(
     state.trd_sum.index_put_((c,), af * delta.d_trd, accumulate=True)
     state.cost_vec[c] = torch.where(accept[:, None], delta.cost_vec, state.cost_vec[c])
     state.n_accepted.index_put_((c,), ai, accumulate=True)
-    _placement_updates(
+    (place or _placement_updates)(
         state, group, chain, p, view.topic,
         write=accept, mirror=accept & view.pvalid,
         rows=new[0], leads=new[1], disks=new[2],
@@ -710,12 +728,13 @@ def apply_swap(
     accept: torch.Tensor,   # bool[K]
     group: TopicGroup | None = None,
     active2: torch.Tensor | bool = True,
+    place=None,
 ) -> None:
     """Apply the scored two-partition candidates where ``accept``, in place
     (a rejected one changes nothing, as in ``apply_move``). ``chain``
     entries must be distinct. Where ``active2`` is False partition 2 is
     inert (a single move): its writes are dropped, which also covers a
-    partner drawn equal to partition 1."""
+    partner drawn equal to partition 1. ``place`` as in ``apply_move``."""
     af, ai = accept.float(), accept.int()
     scatter_partition(state.agg, m, chain, view1, *old1, -af, -ai)
     scatter_partition(state.agg, m, chain, view1, *new1, af, ai)
@@ -732,7 +751,7 @@ def apply_swap(
     state.cost_vec[c] = torch.where(accept[:, None], delta.cost_vec, state.cost_vec[c])
     state.n_accepted.index_put_((c,), ai, accumulate=True)
     write2 = accept & active2
-    _placement_updates(
+    (place or _placement_updates)(
         state, group, torch.cat([chain, chain]), torch.cat([p1, p2]),
         torch.cat([view1.topic, view2.topic]),
         write=torch.cat([accept, write2]),

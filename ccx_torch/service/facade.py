@@ -13,9 +13,10 @@ verbs, answering with the same JSON. ``device`` (None: the CUDA device, or
 raise; ``"cpu"`` on request) is where the monitor builds every model and
 the optimizer runs. The analyzer side honors ``goal.optimizer.backend``:
 'tpu' (the value operators' files carry) = the device search, batched SA
-and polish on ``device``; 'greedy' = the greedy descent only. Multi-GPU
-sharding is not ported yet: with ``optimizer.mesh.enabled`` and two or more
-visible CUDA devices every optimizer verb raises ``ConfigException``.
+and polish on ``device``; 'greedy' = the greedy descent only. With
+``optimizer.mesh.enabled`` the SA phase runs over a device mesh of the
+devices ``ccx_torch.common.vmesh.devices()`` lists of the façade's device
+type (``ccx_torch.parallel.sharding``); fewer than two run single-device.
 """
 
 from __future__ import annotations
@@ -32,7 +33,6 @@ from ccx_torch.common.exceptions import (
 from ccx_torch.common import profiling
 from ccx_torch.common.metrics import REGISTRY
 from ccx_torch.common.tracing import TRACER
-from ccx_torch.config.definition import ConfigException
 
 #: the reference's separate operations log (SURVEY.md §5.1: log4j
 #: `operationLogger` recording every request/decision)
@@ -51,14 +51,6 @@ from ccx_torch.optimizer import OptimizeOptions, OptimizerResult, optimize
 from ccx_torch.search.annealer import AnnealOptions
 from ccx_torch.search.greedy import GreedyOptions, greedy_optimize
 from ccx_torch.proposals import columnar_diff
-
-
-#: why an optimizer verb refuses a mesh over two or more CUDA devices
-MESH_REFUSAL = (
-    "optimizer.mesh.enabled needs multi-GPU sharding, which the port does "
-    "not have yet (the sharding slice, ROADMAP queue 1 item 5); set it "
-    "false, or expose one CUDA device"
-)
 
 
 class CruiseControl:
@@ -230,8 +222,6 @@ class CruiseControl:
 
     def _optimize_options(self, leadership_only: bool = False,
                           disk_only: bool = False) -> OptimizeOptions:
-        if self.config["optimizer.mesh.enabled"] and self._mesh_devices() >= 2:
-            raise ConfigException(MESH_REFUSAL)
         anneal = AnnealOptions(
             n_chains=self.config["optimizer.num.chains"],
             n_steps=self.config["optimizer.num.steps"],
@@ -307,6 +297,10 @@ class CruiseControl:
             ),
             repair_backend=self.config["optimizer.repair.backend"],
             overlap_repair=self.config["optimizer.repair.overlap"],
+            # mesh-sharded SA (REST-overridable like every optimizer.* key)
+            mesh_enabled=self.config["optimizer.mesh.enabled"],
+            mesh_devices=self.config["optimizer.mesh.devices"],
+            mesh_parts=self.config["optimizer.mesh.parts"],
             # swap-polish moves replicas between brokers: never on the
             # leadership-only (demote) or intra-broker (disk) fast paths
             swap_polish_iters=(
@@ -1130,26 +1124,28 @@ class CruiseControl:
             return {"clusterId": self.config["optimizer.fleet.cluster.id"]}
 
     def _mesh_devices(self) -> int:
-        """CUDA devices a mesh would span: the visible ones (none when the
-        façade runs on the CPU), clamped to ``optimizer.mesh.devices``."""
-        import torch
+        """Devices a mesh would span: those ``vmesh.devices()`` lists of the
+        façade's device type (the visible CUDA devices, or a forced virtual
+        mesh), clamped to ``optimizer.mesh.devices``."""
+        from ccx_torch.common import vmesh
 
-        n = torch.cuda.device_count() if self.device.type == "cuda" else 0
+        n = sum(1 for d in vmesh.devices() if d.type == self.device.type)
         if self.config["optimizer.mesh.devices"] > 0:
             n = min(n, self.config["optimizer.mesh.devices"])
         return n
 
     def _mesh_state(self) -> dict:
-        """AnalyzerState.observability.mesh: the configured mesh, keyed as
-        the JAX package's (never raises — state must stay readable). The
-        port has no sharded programs, so their counts are zero; with fewer
-        than two devices a run is single-device (``meshShape`` null); with
-        two or more the shape is the one a sharded run would build, and
-        ``refused`` says why the verbs refuse to run it."""
+        """AnalyzerState.observability.mesh: the configured mesh shape and
+        the live shard-plan cache (``sharding.program_cache_stats``), keyed
+        as the JAX package's; never raises (state must stay readable). The
+        shape mirrors ``optimizer._make_run_mesh``: null below two devices,
+        chains-only when ``parts`` does not divide them."""
+        from ccx_torch.parallel.sharding import program_cache_stats
+
         out: dict = {
             "enabled": bool(self.config["optimizer.mesh.enabled"]),
             "parts": self.config["optimizer.mesh.parts"],
-            "shardedPrograms": {"run": 0, "eval": 0, "max": 0},
+            "shardedPrograms": program_cache_stats(),
         }
         if out["enabled"]:
             try:
@@ -1161,7 +1157,6 @@ class CruiseControl:
                     if n % parts:
                         parts = 1
                     out["meshShape"] = {"chains": n // parts, "parts": parts}
-                    out["refused"] = MESH_REFUSAL
             except Exception:  # noqa: BLE001 — state must stay readable
                 out["meshShape"] = None
         return out

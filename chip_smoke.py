@@ -142,7 +142,7 @@ Phases, one JSON line each:
    scenario corpus (``runs.run_scenario``, the JAX bench's ``--scenario``)
    from its applied result: the five families of
    ``ccx_torch.bench.scenarios`` (broker failures, disk evacuation, hot
-   skew, a broker wave, partition growth) x 4 cumulative windows, seed 7,
+   skew, a broker wave, partition growth) x 3 cumulative windows, seed 7,
    each a delta PutSnapshot and a warm Propose at the steady rung, after
    two prewarm windows and a clean steady baseline (2 + 3 windows). It
    fails unless the run is verified (every window verified and
@@ -160,7 +160,7 @@ Phases, one JSON line each:
    measured loop;
 16. steady — ``ccx_torch.bench.serving.run_steady`` (the JAX bench's
    ``--steady``) from the same cold result on a session of its own: the
-   applied placement put in full, 2 un-timed warm windows, then 10 (the
+   applied placement put in full, 2 un-timed warm windows, then 8 (the
    JAX run's 20) of the drift rule (seed 123), each a metric-only delta
    put and a warm Propose. It fails unless the run is verified (every
    window verified and warm-started, no kernel build in the measured loop)
@@ -187,7 +187,7 @@ Phases, one JSON line each:
    window was served and launched the kernel, and no kernel build fell in
    the measured loop;
 19. steady fleet — ``runs.run_steady_fleet`` (the JAX bench's
-   ``--steady-fleet``) at B3, full width: 3 clusters (the JAX run's 16) x
+   ``--steady-fleet``) at B3, full width: 2 clusters (the JAX run's 16) x
    10 windows, cold converges at the fleet phase's budget, two prewarm
    windows each and a 10-window single-session baseline, then the
    clusters' windows at once on one sidecar under the device-memory
@@ -211,7 +211,24 @@ Phases, one JSON line each:
    the cold diff and the evacuation total, the oracle pins, every optimize
    verified, no build in the re-plan loop) and the cold optimize and the
    evacuation launched the kernel;
-21. result check — a small cluster's stack on the card held against the same
+21. ladder — the bench's default ladder (``ccx_torch.bench.ladder``, the
+   JAX bench's no-flag run): the B1 smoke rung through ``ladder.run_config``
+   (a cold and a warm run, no goals block; the warm run must build no
+   kernel), and the ``target`` and ``lean`` rung lines assembled from the
+   main-path and lean-path runs above (one in-process run each, so its wall
+   is both ``cold_s`` and ``value``; the entry point runs the target rung
+   over the sidecar and adds the ``full`` rung, ``python -m ccx_torch.bench
+   --ladder B5``). Every line must carry ``ladder.LINE_KEYS`` and verify;
+22. mesh — a virtual mesh of 4 logical devices over the card
+   (``ccx_torch.common.vmesh``; chains 2 x parts 2): B5's stack through
+   ``sharding.sharded_stack_eval`` (one kernel launch per block) against
+   ``evaluate_stack``, violations equal and costs within rtol 1e-5 / atol
+   1e-3; the kernel on one block (B5's P / 2 rows) against its plain
+   version; then ``optimize`` of B3 at the fleet phase's budget with
+   ``mesh_enabled`` and ``mesh_parts=2``, which must verify with zero hard
+   violations and carry its ``mesh`` block (the mesh's shape and
+   ``shardedPrograms``). Its wall, phases and launches;
+23. result check — a small cluster's stack on the card held against the same
    stack on the CPU, and three batched SA steps on a 64-broker cluster (3
    chains, 4 moves), then three swap-polish iterations, fed the same draws
    on the card and on the CPU: integer state, placement and grouped mirror
@@ -221,7 +238,7 @@ Phases, one JSON line each:
    mask and hot list (pressure stack within rtol 1e-5 / atol 1e-3) on both,
    and the CPU window's diff planned by the device loop on both gives the
    same waves;
-22. after the paths, which so run as they would alone: the same kernel
+24. after the paths, which so run as they would alone: the same kernel
    check on B6 (10k brokers / 1M partitions, whose shared rows need broker
    tiles), then the kernel times at B5, 4000 brokers and B6 (last, since
    torch.profiler's tracing slows every later launch of the process):
@@ -230,9 +247,10 @@ Phases, one JSON line each:
    ``host_us`` (host enqueue time per call) and the byte bound, for the
    kernel's own choice and for each forced way; at B5 also the plain
    version's time, and the same times on the model the sidecar built from
-   the wire. The ``kernels`` line gives B5's: its ``ms`` is the call time
-   ``call_ms``, beside ``device_ms`` and ``host_us``;
-23. profile — the device busy share and kernel count, under torch.profiler,
+   the wire, and on the mesh phase's B5 block. The ``kernels`` line gives
+   B5's, and the block's as an entry of its own: its ``ms`` is the call
+   time ``call_ms``, beside ``device_ms`` and ``host_us``;
+25. profile — the device busy share and kernel count, under torch.profiler,
    of windows on the repaired B5 model: 5 polish iterations, 5 batched SA
    steps at ``p_swap=0.15`` and 5 swap-polish iterations, and one more warm
    window on the warm path's last snapshot (once 10 steps and iterations,
@@ -241,7 +259,7 @@ Phases, one JSON line each:
    took about 0.5 ms a kernel, 168 s in all); before them, how many times
    10 steps or iterations of each, and one warm window, make the host wait
    for the card;
-24. the card's ``nvidia-smi`` line, then the ``kernels`` line, then the
+26. the card's ``nvidia-smi`` line, then the ``kernels`` line, then the
    contract line ``{"ok": true, "device": {...}}`` last.
 
 Any failed check, an unverified result, remaining hard violations, a path
@@ -249,8 +267,9 @@ that never proposed both kinds of swap (target) or launched a kernel of
 the path zero times exits non-zero. Each path (main, lean, warm,
 structural, exchange A/B, sidecar serve, sidecar options, fleet, fleet
 run, the service's dry run, detection round, warm proposal and demo
-execution, scenario, chaos, steady, wire, soak, steady fleet and plan) sets
-the launch count to 0 just before it runs and reads it just after. Needs
+execution, scenario, chaos, steady, wire, soak, steady fleet, plan, the
+ladder's smoke rung, the sharded stack and the sharded optimize) sets the
+launch count to 0 just before it runs and reads it just after. Needs
 one CUDA
 device; run from the repository root: ``python3 chip_smoke.py``.
 """
@@ -332,22 +351,25 @@ SERVICE_TARGET_KEYS = {
 DEMO_KEYS = {"optimizer.num.chains": 8, "optimizer.num.steps": 40,
              "optimizer.polish.max.iters": 100, "optimizer.swap.polish.iters": 30,
              "optimizer.swap.polish.post.iters": 30}
-#: the scenario and chaos phases: windows per family and the corpus seed
-#: (the optimizer.scenario.* defaults), and faulted windows: one cycle of
+#: the scenario and chaos phases: windows per family (the
+#: optimizer.scenario.* default 4, cut to 3 for the ladder and mesh
+#: phases), the corpus seed (its default), and faulted windows: one cycle of
 #: the seven seams (two cycles took the script to 970 s on an H100, near
 #: its 1000 s budget; ``python -m ccx_torch.bench --chaos`` keeps 14)
-SCENARIO_WINDOWS, SCENARIO_SEED, CHAOS_WINDOWS = 4, 7, 7
+SCENARIO_WINDOWS, SCENARIO_SEED, CHAOS_WINDOWS = 3, 7, 7
 #: the soak phase: clusters, ticks (the JAX run's 96 cut to 36, which
 #: still places one injection of each kind) and seed; the steady-fleet
-#: phase: clusters (the JAX run's 16 cut to 3) and windows each
+#: phase: clusters (the JAX run's 16, cut to 3, then to 2 for the ladder
+#: and mesh phases) and windows each
 SOAK_CLUSTERS, SOAK_TICKS, SOAK_SEED = 2, 36, 1729
-STEADY_FLEET_CLUSTERS, STEADY_FLEET_WINDOWS = 3, 10
+STEADY_FLEET_CLUSTERS, STEADY_FLEET_WINDOWS = 2, 10
 #: the exchange A/B phase's steps per chunk (its 4 temperature rungs are
 #: the run's default, ``CCX_EXCHANGE_TEMPS``), and the rungs of the
 #: result check's exchange sweep
 LADDER_CHUNK, LADDER_TEMPS = 25, 4
-#: the steady and wire phases: measured windows each (the JAX runs' 20)
-WARM_RUN_WINDOWS = 10
+#: the steady and wire phases: measured windows each (the JAX runs' 20; 10
+#: until the ladder and mesh phases came)
+WARM_RUN_WINDOWS = 8
 #: the fleet-run phase: jobs (the JAX run's 16), each at the fleet phase's
 #: budget, plus the urgent one
 FLEET_RUN_JOBS = 2
@@ -357,6 +379,10 @@ FLEET_RUN_JOBS = 2
 #: H100 and the script 1201 s, so the phase runs B2 (50 brokers, 5000
 #: partitions) and ``python -m ccx_torch.bench --plan B5`` covers B5
 PLAN_CONFIG, PLAN_EVAC_WINDOWS, PLAN_REPLAN_ITERS = "B2", 1, 8
+#: the mesh phase: logical devices of the virtual mesh over the card and its
+#: parts axis (chains 2 x parts 2); the sharded optimize runs B3 at the
+#: fleet phase's budget
+MESH_DEVICES, MESH_PARTS = 4, 2
 #: fixtures of the kernel-time phase: B5, a sparse wide cluster, and B6,
 #: whose 16384 brokers need broker tiles for rows in shared memory
 TIME_FIXTURES = ("B5", "4000-brokers", "B6")
@@ -2061,6 +2087,106 @@ def warm_window_on_card(dev) -> dict:
             "plan_waves": plans[0].n_waves}
 
 
+def ladder_phase(dev, agg_op, path_lines: dict) -> dict:
+    """Phase 21 (module docstring)."""
+    from ccx_torch.bench import ladder
+
+    agg_op.LAUNCHES = 0
+    t = time.monotonic()
+    r = ladder.run_config("B1", "smoke", device=dev)
+    smoke = ladder.rung_line("B1", "smoke", r, dev)
+    launches = agg_op.LAUNCHES
+    lines = {"smoke": smoke, **path_lines}
+    for rung, line in lines.items():
+        missing = set(ladder.LINE_KEYS) - set(line)
+        if missing:
+            fail(f"ladder: the {rung} line lacks {sorted(missing)}")
+        if not line["verified"]:
+            fail(f"ladder: the {rung} rung is unverified: {line['verification_failures']}")
+    if smoke["compile_cache"]["warm"]["backend_compiles"]:
+        fail(f"ladder: the smoke rung's warm run built a kernel: {smoke['compile_cache']}")
+    if launches == 0:
+        fail("ladder: the smoke rung never launched the broker_aggregates kernel")
+    return {"phase": "ladder", "seconds": time.monotonic() - t,
+            "launches": {"broker_aggregates": launches},
+            "lines": {rung: {k: v for k, v in line.items()
+                             if k not in ("spanTree", "costModel", "convergence")}
+                      for rung, line in lines.items()}}
+
+
+def mesh_phase(dev, agg_op, b5) -> tuple[dict, object]:
+    """Phase 22 (module docstring). Returns the line and the B5 shard the
+    kernel was checked on (timed with the other fixtures at the end)."""
+    import torch
+
+    from ccx_torch.common import vmesh
+    from ccx_torch.goals.base import GoalConfig
+    from ccx_torch.goals.stack import DEFAULT_GOAL_ORDER, evaluate_stack
+    from ccx_torch.model.fixtures import bench_spec, random_cluster
+    from ccx_torch.optimizer import optimize
+    from ccx_torch.parallel import sharding
+
+    cfg = GoalConfig()
+    t = time.monotonic()
+    with vmesh.forced(MESH_DEVICES, dev):
+        mesh = sharding.make_mesh(parts=MESH_PARTS)
+        # the B5 stack, sharded against unsharded
+        agg_op.LAUNCHES = 0
+        t_eval = time.monotonic()
+        sharded = sharding.sharded_stack_eval(b5, cfg, DEFAULT_GOAL_ORDER, mesh)
+        torch.cuda.synchronize()
+        eval_s = time.monotonic() - t_eval
+        eval_launches = agg_op.LAUNCHES
+        ref = evaluate_stack(b5, cfg, DEFAULT_GOAL_ORDER)
+        if not torch.equal(sharded.violations, ref.violations):
+            fail("mesh: the sharded B5 stack's violations differ from the unsharded stack's")
+        if not torch.allclose(sharded.costs, ref.costs, rtol=RTOL, atol=ATOL):
+            fail(f"mesh: the sharded B5 stack's costs differ: max |d| "
+                 f"{float((sharded.costs - ref.costs).abs().max())}")
+        if eval_launches != MESH_PARTS:
+            fail(f"mesh: the sharded stack launched the kernel {eval_launches} times, "
+                 f"not once per block ({MESH_PARTS})")
+        # the kernel on one block against its plain version
+        shard = sharding.shard_model(b5, mesh).blocks[0][1]
+        shard_err = compare_aggregates(agg_op.broker_aggregates_cuda(shard),
+                                       agg_op.broker_aggregates_plain(shard))
+        shard_ms = cuda_ms(lambda: agg_op.broker_aggregates_cuda(shard), TIMING_ITERS)
+        shard_plain_ms = cuda_ms(lambda: agg_op.broker_aggregates_plain(shard), TIMING_ITERS)
+        # a sharded optimize of B3 at the fleet phase's budget
+        b3 = random_cluster(bench_spec("B3"), device=dev)
+        goal_names, opts = fleet_options()
+        opts = dataclasses.replace(opts, mesh_enabled=True, mesh_parts=MESH_PARTS)
+        agg_op.LAUNCHES = 0
+        res = optimize(b3, cfg, goal_names, opts)
+        torch.cuda.synchronize()
+        opt_launches = agg_op.LAUNCHES
+    hard_after = float(res.stack_after.hard_violations)
+    if not res.verification.ok:
+        fail(f"mesh: the sharded B3 optimize is unverified: {res.verification.failures}")
+    if hard_after > 0:
+        fail(f"mesh: the sharded B3 optimize left {hard_after} hard violations")
+    want = {"chains": MESH_DEVICES // MESH_PARTS, "parts": MESH_PARTS}
+    if res.mesh is None or res.mesh["meshShape"] != want or "shardedPrograms" not in res.mesh:
+        fail(f"mesh: the sharded B3 optimize's mesh block is {res.mesh}, not over {want}")
+    if opt_launches == 0:
+        fail("mesh: the sharded B3 optimize never launched the broker_aggregates kernel")
+    line = {
+        "phase": "mesh", "mesh": {**mesh.shape, "devices": MESH_DEVICES, "virtual": True},
+        "stack_eval": {"config": "B5", "seconds": eval_s, "launches": eval_launches,
+                       "violations_equal": True,
+                       "max_abs_cost_err": float((sharded.costs - ref.costs).abs().max())},
+        "shard_kernel": {"P": shard.P, "B": shard.B, "max_abs_err": shard_err,
+                         "call_ms": shard_ms, "plain_ms": shard_plain_ms},
+        "optimize": {"config": "B3", "wall_seconds": res.wall_seconds,
+                     "phase_seconds": res.phase_seconds, "sa_engine": res.sa_engine,
+                     "verified": True, "hard_violations_after": hard_after,
+                     "mesh": res.mesh, "launches": opt_launches},
+        "seconds": time.monotonic() - t,
+        "launches": {"broker_aggregates": opt_launches},
+    }
+    return line, shard
+
+
 def main() -> None:
     import torch
 
@@ -2179,16 +2305,28 @@ def main() -> None:
           "B5_fixture_seconds": fixture_s})
 
     # --- 4, 5. the two paths ----------------------------------------------
+    from ccx_torch.bench import ladder
+    from ccx_torch.common import compilestats
+
     cfg = GoalConfig()
-    launches, walls = {}, {}
+    launches, walls, path_lines = {}, {}, {}
     for phase, rung in PATHS:
         goal_names, opts, effort = build_opts("B5", rung)
         torch.cuda.reset_peak_memory_stats()
         agg_op.LAUNCHES = 0
+        cs0 = compilestats.snapshot()
+        t_path = time.monotonic()
         res = optimize(b5, cfg, goal_names, opts)
         torch.cuda.synchronize()
+        path_wall = time.monotonic() - t_path
         launches[rung] = agg_op.LAUNCHES
         walls[rung] = res.wall_seconds
+        # the ladder's rung line from this one run (ladder phase)
+        built = compilestats.delta(cs0, compilestats.snapshot())
+        run = (path_wall, ladder.local_summary(res))
+        path_lines[rung] = ladder.rung_line("B5", rung, ladder.rung_result(
+            rung, run, [run], effort, {"cold": built, "warm": built},
+            launches={"cold": launches[rung], "warm": launches[rung]}), dev)
         before, after = res.stack_before.by_name(), res.stack_after.by_name()
         hard_after = float(res.stack_after.hard_violations)
         emit({
@@ -2318,7 +2456,18 @@ def main() -> None:
     emit(line)
     check_plan(line)
 
-    # --- 21. result check: the card against the CPU ---------------------------
+    # --- 21, 22. the bench's ladder lines, and the sharded path on a virtual
+    # mesh over the card ---------------------------------------------------------
+    line = ladder_phase(dev, agg_op, path_lines)
+    launches["ladder"] = line["launches"]["broker_aggregates"]
+    emit(line)
+    del path_lines
+    line, shard = mesh_phase(dev, agg_op, b5)
+    launches["mesh"] = line["launches"]["broker_aggregates"]
+    mesh_line = line
+    emit(line)
+
+    # --- 23. result check: the card against the CPU ---------------------------
     small = random_cluster(bench_spec("B3"), device=dev)
     host = model_from_arrays(model_arrays(small), small.num_topics, small.num_racks, "cpu")
     s_dev = evaluate_stack(small, cfg, DEFAULT_GOAL_ORDER)
@@ -2331,7 +2480,7 @@ def main() -> None:
           "cpu_equal": card_against_cpu(dev), "exchange_equal": exchange_on_card(dev),
           "warm_window_equal": warm_window_on_card(dev)})
 
-    # --- 22. B6's check and the kernel times, after the paths; the times
+    # --- 24. B6's check and the kernel times, after the paths; the times
     # last of the two (once torch.profiler has traced the card, every later
     # launch in the process pays for the tracing) ------------------------------
     t = time.monotonic()
@@ -2353,6 +2502,12 @@ def main() -> None:
             line.update(plain_ms=plain_ms, library_ms=None)
         emit(line)
     del wide, b6
+    # one block of B5 on the virtual mesh (the mesh phase's shard): the
+    # kernel as the sharded path launches it
+    shard_times = time_kernel(agg_op, shard)
+    emit({"phase": "kernel-time", "kernel": "broker_aggregates", "model": "B5 parts-shard",
+          "P": shard.P, "plan": agg_op.plan(shard), **shard_times})
+    del shard
     # the model the sidecar built from the wire (B5's arrays, packed and
     # decoded): the kernel as the serving path launches it
     serve_times = time_kernel(agg_op, served)
@@ -2360,7 +2515,7 @@ def main() -> None:
           "plan": agg_op.plan(served), **serve_times})
     del served
 
-    # --- 23. profile -----------------------------------------------------------
+    # --- 25. profile -----------------------------------------------------------
     def windows(k: int):
         return (dataclasses.replace(opts.anneal, n_steps=k),
                 dataclasses.replace(opts.polish, max_iters=k, patience=k),
@@ -2394,7 +2549,7 @@ def main() -> None:
               lambda: optimize(snap, cfg, goal_names, warm_opts,
                                warm_start=STORE.get(session)))}})
 
-    # --- 24. summary lines -----------------------------------------------------
+    # --- 26. summary lines -----------------------------------------------------
     if options_bound_ms != times["bound_ms"]:
         fail(f"the costModel's broker-aggregates bound {options_bound_ms} ms differs from the "
              f"kernel line's {times['bound_ms']} ms")
@@ -2421,6 +2576,18 @@ def main() -> None:
         "call_ms": times["call_ms"], "host_us": times["host_us"],
         "plain_ms": plain_ms, "bound_ms": times["bound_ms"],
         "bound_by": times["bound_by"], "library_ms": None,
+    }, {
+        "name": "broker_aggregates (one parts shard of B5)", "route": "cuda",
+        "source": "ccx_torch/csrc/broker_aggregates.cu",
+        "replaces": "ccx/ops/mxu_aggregates.py:210",
+        "launches": launches["mesh"],
+        "launches_per_sharded_stack_eval": mesh_line["stack_eval"]["launches"],
+        "shard_rows": mesh_line["shard_kernel"]["P"],
+        "max_abs_err": mesh_line["shard_kernel"]["max_abs_err"],
+        "ms": shard_times["call_ms"], "device_ms": shard_times["device_ms"],
+        "call_ms": shard_times["call_ms"], "host_us": shard_times["host_us"],
+        "plain_ms": mesh_line["shard_kernel"]["plain_ms"], "bound_ms": shard_times["bound_ms"],
+        "bound_by": shard_times["bound_by"], "library_ms": None,
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})
 

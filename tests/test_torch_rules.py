@@ -433,8 +433,8 @@ def test_resolve_class_maps_the_jax_packages_paths_to_the_port():
     assert resolve_class("ccx.monitor.capacity.StaticCapacityResolver") is StaticCapacityResolver
     assert resolve_class("ccx_torch.monitor.capacity.StaticCapacityResolver") is (
         StaticCapacityResolver)
-    with pytest.raises(ConfigException):  # no counterpart in the port
-        resolve_class("ccx.parallel.sharding.program_cache_stats")
+    with pytest.raises(ConfigException):  # no module of that name in the port
+        resolve_class("ccx.ops.mxu_aggregates.broker_aggregates_mxu")
 
 
 def test_service_main_without_a_card_raises_and_serves_nothing(monkeypatch):
