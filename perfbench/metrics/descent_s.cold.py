@@ -1,0 +1,11 @@
+"""Descents: the result's phaseSeconds of polish, leader-pass, swap-polish and
+swap-polish-post, summed, mean per cold proposal. Read from the requests
+served before the profiler started. Moves propose_s."""
+
+PHASES = ('polish', 'leader-pass', 'swap-polish', 'swap-polish-post')
+
+
+def read(run):
+    vals = [sum(r.result["phaseSeconds"].get(p, 0.0) for p in PHASES)
+            for r in run.requests if r.kind == "cold" and r.result is not None and not r.traced]
+    return sum(vals) / len(vals) if vals else None
