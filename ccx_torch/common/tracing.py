@@ -1,7 +1,8 @@
-"""Flight-recorder tracing — structured spans, chunk heartbeats, stall
-watchdog.
+"""Flight-recorder tracing — structured spans, chunk heartbeats, host
+syncs, stall watchdog.
 
-The port's copy of the JAX package's ``common/tracing.py``, in three pieces:
+The port's copy of the JAX package's ``common/tracing.py``, grown into the
+port's one measurement system:
 
 **Spans.** ``TRACER.span(name, kind=..., **attrs)`` wraps a code region:
 wall time and caller-supplied shape/config attributes. Spans nest per
@@ -14,14 +15,48 @@ on it, trading the launch queue's overlap for device-honest per-phase
 walls. A failing synchronize raises: a lost device must not be read as a
 fast phase.
 
+**Ids and the clock.** Every span has a ``spanId`` and its parent's
+``parentId``, and carries its request's ``requestId``: a root takes it
+from ``request_id=`` or from the link its thread adopted
+(``TRACER.link()`` on the launching thread, ``TRACER.adopt(link)`` on the
+worker: a request crosses threads explicitly, never by thread-local
+nesting); a child takes its parent's. Every span stamps ``startNs`` and
+``endNs``, integer nanoseconds of ``CLOCK_REALTIME`` (``time.time_ns``):
+the clock ``torch.profiler`` stamps its host events with (kineto converts
+its approximate clock to Unix time), so a span window and a profiler's
+events share one timeline. The millisecond ``startedAt`` stays. While a
+profiler is recording, every span that is not an aggregate also opens a
+``torch.profiler.record_function`` range ``ccx:<name>``, so a capture
+(``ccx_torch.common.profiling.trace``) shows the spans on its timeline.
+
+**Aggregate spans.** ``TRACER.step(name)`` wraps one iteration of a hot
+loop (an SA step, a descent iteration). Repeats under one parent roll up
+into ONE node with ``calls`` and the summed wall, syncs and waits, so the
+tree keeps its size however many iterations run. A span opened inside an
+aggregate rolls up the same way. An aggregate takes no compile or cost
+snapshot and has no ``kind`` (no histogram), sends no record to
+listeners, and writes one ``step`` line to the recorder only while it is
+armed, so a killed loop's last line names its iteration.
+
+**Host syncs.** Every host read of device data on the search's path, and
+every blocking copy of a host constant to the device (on a card it waits
+for the queue like a read), runs under ``with TRACER.blocked():``, which
+counts it and times how long the host blocked in it, on the innermost open
+span: ``syncs`` and ``syncWaitSeconds``, rendered with ``self`` and
+``total`` (the subtree's sum). A block counts one site's execution, which
+may drain the queue more than once (a ``bincount`` sizes its output from
+the data); ``tools/torch_trace_audit.py`` holds the counts against
+torch's own report (``torch.cuda.set_sync_debug_mode``). ``note_grant_wait`` adds the seconds a fleet job waited in the
+scheduler's queues (``grantWaitSeconds``, the same form).
+
 **Flight recorder.** ``arm(path)`` (or env ``CCX_FLIGHT_RECORDER``) streams
 every span start/end, every chunk heartbeat (one record per
-``drive_chunks`` chunk — phase, chunk index, energy), and watchdog dumps to
-a JSONL file. Crash-safe by construction: each record is ONE ``os.write``
-to an ``O_APPEND`` fd — atomic for regular files, and OS-buffered data
-survives SIGKILL — so a killed run leaves a file whose last line names the
-exact phase and chunk at death. Parse it with ``python -m
-ccx_torch.common.tracing <file>``.
+``drive_chunks`` chunk — phase, chunk index, energy), every aggregate
+entry, and watchdog dumps to a JSONL file. Crash-safe by construction:
+each record is ONE ``os.write`` to an ``O_APPEND`` fd — atomic for regular
+files, and OS-buffered data survives SIGKILL — so a killed run leaves a
+file whose last line names the exact phase, chunk and step at death. Parse
+it with ``python -m ccx_torch.common.tracing <file>``.
 
 **Stall watchdog.** With ``CCX_WATCHDOG_SECONDS`` > 0 (or
 ``set_watchdog``) a daemon thread watches the event stream; when no span
@@ -37,15 +72,18 @@ the captured allocator peak), computed when the span is rendered, so a
 cold run's spans pick up the records its ``cost-capture`` phase banks
 after they closed.
 
-Overhead contract: spans and heartbeats are host-side only — no tensor is
-touched unless ``sync`` is on — and unarmed, a heartbeat is two attribute
-writes and a timestamp.
+Overhead contract: spans, aggregates, heartbeats and the sync helper are
+host-side only. With the recorder unarmed and no profiler recording, they
+make no profiler call, write no recorder line and touch no tensor (unless
+``sync`` is on): a span is a few clock reads and list operations, an
+aggregate entry or a sync count a microsecond or two.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import itertools
 import json
 import os
 import sys
@@ -75,40 +113,107 @@ def _device_sync(device) -> None:
     torch.cuda.synchronize(device)
 
 
+#: span ids, process-wide (``next`` on a count is atomic under the GIL)
+_IDS = itertools.count(1)
+
+#: the counters a span keeps, by rendered name
+_COUNTERS = ("syncs", "syncWaitSeconds", "grantWaitSeconds")
+
+
+def new_request_id() -> str:
+    """A fresh request id: 16 hex digits."""
+    return os.urandom(8).hex()
+
+
+def _profiler_recording() -> bool:
+    """Whether a ``torch.profiler`` capture is recording, read from torch's
+    own flag without a profiler call (False until torch's profiler module
+    is loaded)."""
+    mod = sys.modules.get("torch.autograd.profiler")
+    return bool(mod is not None and getattr(mod, "_is_profiler_enabled", False))
+
+
+def _range_enter(name: str):
+    """Open a ``record_function`` range for a span (a profiler records)."""
+    import torch
+
+    rf = torch.autograd.profiler.record_function("ccx:" + name)
+    rf.__enter__()
+    return rf
+
+
 class Span:
-    """One traced region. Mutable fields are written by the owning thread
-    only; the watchdog reads paths/attrs without a lock (stale reads are
-    acceptable in a stall dump)."""
+    """One traced region, or with ``aggregate`` the roll-up of every
+    repeat of one loop iteration under its parent. Mutable fields are
+    written by the owning thread only; the watchdog reads paths/attrs
+    without a lock (stale reads are acceptable in a stall dump)."""
 
     __slots__ = (
         "name", "kind", "path", "attrs", "children", "t_wall",
         "t0", "wall_s", "compile0", "compile", "cost0", "cost_delta", "device", "done",
+        "span_id", "parent_id", "request_id", "start_ns", "end_ns", "aggregate", "calls",
+        "agg", "agg_ns", "enter_ns", "syncs", "sync_ns", "grant_ns", "rf", "stack",
     )
 
     def __init__(self, name: str, kind: str | None, path: str,
-                 attrs: dict, compile0: dict | None, device=None) -> None:
+                 attrs: dict, compile0: dict | None, device=None,
+                 parent: "Span | None" = None, request_id: str | None = None,
+                 parent_id: int | None = None, aggregate: bool = False) -> None:
         self.name = name
         self.kind = kind
         self.path = path
         self.attrs = attrs
         self.children: list[Span] = []
-        self.t_wall = time.time()
+        self.span_id = next(_IDS)
+        self.parent_id = parent.span_id if parent is not None else parent_id
+        self.request_id = parent.request_id if parent is not None else request_id
+        self.start_ns = time.time_ns()
+        self.end_ns: int | None = None
+        self.t_wall = self.start_ns / 1e9
         self.t0 = time.monotonic()
         self.wall_s: float | None = None
         self.compile0 = compile0
         self.compile: dict | None = None
-        self.cost0 = costmodel.exec_snapshot()
+        self.cost0 = None if aggregate else costmodel.exec_snapshot()
         self.cost_delta: dict | None = None
         #: the device a ``sync`` close drains (None: host-only span)
         self.device = device
         self.done = False
+        self.aggregate = aggregate
+        #: aggregates: entries, summed ns, the open entry's start, and each
+        #: aggregate child by name
+        self.calls = 0
+        self.agg_ns = 0
+        self.enter_ns = 0
+        self.agg: dict[str, Span] | None = None
+        self.syncs = 0
+        self.sync_ns = 0
+        self.grant_ns = 0
+        #: the open ``record_function`` range (a profiler recorded at start)
+        self.rf = None
+        #: the owning thread's span stack
+        self.stack: list[Span] | None = None
+
+    def counters(self) -> tuple[int, float, float]:
+        """(syncs, sync wait s, grant wait s) of this span alone."""
+        return self.syncs, self.sync_ns / 1e9, self.grant_ns / 1e9
 
     def to_json(self) -> dict:
         out: dict = {"name": self.name, "startedAt": round(self.t_wall, 3)}
         if self.kind:
             out["kind"] = self.kind
+        out["spanId"] = self.span_id
+        if self.parent_id is not None:
+            out["parentId"] = self.parent_id
+        if self.request_id is not None:
+            out["requestId"] = self.request_id
+        if self.aggregate:
+            out["calls"] = self.calls
         if self.wall_s is not None:
             out["wallSeconds"] = round(self.wall_s, 4)
+        out["startNs"] = self.start_ns
+        if self.end_ns is not None:
+            out["endNs"] = self.end_ns
         if self.attrs:
             out["attrs"] = dict(self.attrs)
         if self.compile:
@@ -118,8 +223,15 @@ class Span:
             # the projected device seconds and allocator peak of the
             # instrumented calls this span made
             out["costModel"] = cost
-        if self.children:
-            out["children"] = [c.to_json() for c in self.children]
+        children = [c.to_json() for c in self.children]
+        own = self.counters()
+        for i, key in enumerate(_COUNTERS):
+            total = own[i] + sum(c.get(key, {}).get("total", 0) for c in children)
+            if total:
+                out[key] = ({"self": own[i], "total": total} if i == 0 else
+                            {"self": round(own[i], 6), "total": round(total, 6)})
+        if children:
+            out["children"] = children
         return out
 
 
@@ -289,46 +401,82 @@ class Tracer:
                 self._stacks[threading.get_ident()] = st
         return st
 
-    def start(self, name: str, kind: str | None = None, device=None,
-              **attrs) -> Span:
+    def start(self, name: str, kind: str | None = None, device=None, *,
+              request_id: str | None = None, **attrs) -> Span:
         """Open a span on this thread. ``device`` (a ``torch.device``) is
-        what a ``sync`` close drains; it is not an attribute."""
+        what a ``sync`` close drains; it is not an attribute.
+        ``request_id`` names the request a root span serves (a child
+        carries its parent's); a root opened under ``adopt(link)`` takes
+        the link's request and parent. Under an aggregate the span rolls
+        up into its parent like one (module docstring)."""
         self._maybe_env()
         st = self._stack()
-        path = (st[-1].path + "/" + name) if st else name
+        parent = st[-1] if st else None
+        if parent is not None and parent.aggregate:
+            return self._enter_aggregate(st, parent, name)
+        parent_id = None
+        if parent is None:
+            link = getattr(self._tl, "link", None)
+            if link is not None:
+                request_id = request_id or link[0]
+                parent_id = link[1]
+        path = (parent.path + "/" + name) if parent is not None else name
         job = self.job()
         if job is not None and "job" not in attrs:
             # per-job attribution (fleet serving): the span tree and every
             # recorder line under it name which cluster's job this is
             attrs = {"job": job, **attrs}
-        s = Span(name, kind, path, attrs, _compile_snapshot(), device)
-        if st:
-            st[-1].children.append(s)
+        s = Span(name, kind, path, attrs, _compile_snapshot(), device,
+                 parent=parent, request_id=request_id, parent_id=parent_id)
+        s.stack = st
+        if parent is not None:
+            parent.children.append(s)
         st.append(s)
         self._record({
-            "ev": "start", "span": path,
+            "ev": "start", "span": path, "spanId": s.span_id,
+            **({"parentId": s.parent_id} if s.parent_id is not None else {}),
+            **({"requestId": s.request_id} if s.request_id is not None else {}),
             **({"kind": kind} if kind else {}),
             **({"attrs": attrs} if attrs else {}),
         })
+        if _profiler_recording():
+            s.rf = _range_enter(name)
         return s
 
     def end(self, span: Span) -> None:
-        """Close a span. With ``sync`` on, its device is drained first; a
-        failing synchronize still closes the span, then propagates."""
+        """Close a span. With ``sync`` on, its device is drained first (a
+        counted host sync); a failing synchronize still closes the span,
+        then propagates."""
         if span.done:
             return
+        if span.aggregate:
+            self._exit_aggregate(span)
+            return
         try:
-            if self.sync:
-                _device_sync(span.device)
+            if self.sync and getattr(span.device, "type", None) == "cuda":
+                with self.blocked():
+                    _device_sync(span.device)
         finally:
             self._close(span)
 
-    def _close(self, span: Span) -> None:
-        span.wall_s = time.monotonic() - span.t0
-        span.compile = _compile_delta(span.compile0)
-        span.cost_delta = _cost_exec_delta(span.cost0)
+    @staticmethod
+    def _finish(span: Span) -> None:
+        """Close a span's profiler range, then stamp its end (an aggregate:
+        add this entry), so the range lies inside the span's window."""
+        if span.rf is not None:
+            rf, span.rf = span.rf, None
+            rf.__exit__(None, None, None)
+        now = time.time_ns()
+        span.end_ns = now
+        if span.aggregate:
+            span.agg_ns += now - span.enter_ns
+            span.wall_s = span.agg_ns / 1e9
+        else:
+            span.wall_s = time.monotonic() - span.t0
         span.done = True
-        st = getattr(self._tl, "stack", None)
+
+    def _close(self, span: Span) -> None:
+        st = span.stack
         root_closed = False
         if st is not None and span in st:
             # pop through to this span — an unwound exception may leave
@@ -336,33 +484,41 @@ class Tracer:
             while st and st[-1] is not span:
                 inner = st.pop()
                 if not inner.done:
-                    inner.wall_s = time.monotonic() - inner.t0
-                    inner.done = True
+                    self._finish(inner)
             if st and st[-1] is span:
                 st.pop()
             root_closed = not st
+        self._finish(span)
+        span.compile = _compile_delta(span.compile0)
+        span.cost_delta = _cost_exec_delta(span.cost0)
         cost = _cost_compact(span.cost_delta, span.device)
+        syncs, sync_s, grant_s = span.counters()
         self._record({
-            "ev": "end", "span": span.path,
+            "ev": "end", "span": span.path, "spanId": span.span_id,
+            **({"requestId": span.request_id} if span.request_id is not None else {}),
             "wall_s": round(span.wall_s, 4),
+            **({"syncs": syncs, "syncWaitSeconds": round(sync_s, 6)} if syncs else {}),
+            **({"grantWaitSeconds": round(grant_s, 6)} if grant_s else {}),
             **({"compile": span.compile} if span.compile else {}),
             # a later stall in the same phase reads its expected cost off
             # this record (summarize() joins them)
             **({"cost": cost} if cost else {}),
         })
         if root_closed:
-            # root closed: bank the tree and deregister this thread's
-            # stack — the sidecar spawns a worker thread per Propose, so
-            # keeping dead-thread entries would grow the registry (and
-            # every watchdog/REST scan of it) without bound. The next
-            # span on this thread re-registers via _stack(). Must run
-            # AFTER the end record above — _record re-stamps this
+            # root closed: bank the tree and deregister the owning
+            # thread's stack — the sidecar spawns a worker thread per
+            # Propose, so keeping dead-thread entries would grow the
+            # registry (and every watchdog/REST scan of it) without bound.
+            # The next span on this thread re-registers via _stack(). Must
+            # run AFTER the end record above — _record re-stamps this
             # thread's liveness entry, which would undo the pop.
             tid = threading.get_ident()
-            self._tl.stack = None
+            if getattr(self._tl, "stack", None) is st:
+                self._tl.stack = None
             with self._lock:
                 self._last_root = span.to_json()
-                self._stacks.pop(tid, None)
+                if self._stacks.get(tid) is st:
+                    self._stacks.pop(tid, None)
             self._thread_last.pop(tid, None)
         if span.kind:
             # bucketed per-phase / per-RPC / per-verb latency — the
@@ -385,6 +541,101 @@ class Tracer:
             yield s
         finally:
             self.end(s)
+
+    # ----- aggregate spans ----------------------------------------------------
+
+    def step(self, name: str) -> "_Step":
+        """``with TRACER.step(name):`` — one iteration of a hot loop, rolled
+        up under the innermost open span (module docstring). Outside any
+        span it does nothing."""
+        return _Step(self, name)
+
+    def _enter_aggregate(self, st: list[Span], parent: Span, name: str) -> Span:
+        agg = parent.agg
+        if agg is None:
+            agg = parent.agg = {}
+        node = agg.get(name)
+        if node is None:
+            node = Span(name, None, parent.path + "/" + name, {}, None,
+                        parent=parent, aggregate=True)
+            node.stack = st
+            agg[name] = node
+            parent.children.append(node)
+        node.calls += 1
+        node.done = False
+        node.enter_ns = time.time_ns()
+        st.append(node)
+        if self._fd is not None:
+            # armed: one line per entry, to the file only, so a killed
+            # loop's last line names its iteration
+            self._record({"ev": "step", "span": node.path, "call": node.calls},
+                         listeners=False)
+        return node
+
+    def _exit_aggregate(self, node: Span) -> None:
+        st = node.stack
+        while st and st[-1] is not node:
+            inner = st.pop()
+            if not inner.done:
+                self._finish(inner)
+        if st:
+            st.pop()
+        self._finish(node)
+
+    # ----- host syncs and queue waits -----------------------------------------
+
+    def blocked(self) -> "_Blocked":
+        """``with TRACER.blocked(): value = t.tolist()`` — a host read of
+        device data, or a blocking copy to the device: counted and timed on
+        the innermost open span (``syncs``, ``syncWaitSeconds``). Blocks
+        nest: each counts, and the outermost times the wait."""
+        return _Blocked(self._tl)
+
+    def numpy(self, t):
+        """``t.cpu().numpy()`` as one counted host read (``blocked``)."""
+        with self.blocked():
+            return t.cpu().numpy()
+
+    def in_sync(self) -> bool:
+        """Whether this thread is inside ``blocked()`` (the sync audit
+        tells counted syncs from unrouted ones by it)."""
+        return getattr(self._tl, "blocking", 0) > 0
+
+    def note_grant_wait(self, seconds: float) -> None:
+        """Add ``seconds`` a fleet job waited in the scheduler's queues to
+        the innermost open span (``grantWaitSeconds``)."""
+        st = getattr(self._tl, "stack", None)
+        if st:
+            st[-1].grant_ns += int(seconds * 1e9)
+
+    # ----- requests across threads ----------------------------------------------
+
+    def link(self) -> tuple[str | None, int] | None:
+        """(request id, span id) of this thread's innermost open span, for
+        a worker thread to ``adopt``; None with no span open."""
+        st = getattr(self._tl, "stack", None)
+        if not st:
+            return None
+        return st[-1].request_id, st[-1].span_id
+
+    def set_request(self, request_id: str) -> None:
+        """Name the request this thread's open spans serve, where the id
+        arrives inside the request's own payload: the open spans that
+        carry none take it, and every span opened after inherits it."""
+        for s in getattr(self._tl, "stack", None) or ():
+            if s.request_id is None:
+                s.request_id = request_id
+
+    @contextlib.contextmanager
+    def adopt(self, link: tuple[str | None, int] | None):
+        """Roots opened on this thread inside the block carry ``link``'s
+        request id and name its span as their parent."""
+        prev = getattr(self._tl, "link", None)
+        self._tl.link = link
+        try:
+            yield
+        finally:
+            self._tl.link = prev
 
     def heartbeat(self, chunk: int, offset: int | None = None,
                   total: int | None = None,
@@ -503,10 +754,11 @@ class Tracer:
             if fn in self._listeners:
                 self._listeners.remove(fn)
 
-    def _record(self, rec: dict, event: bool = True) -> None:
+    def _record(self, rec: dict, event: bool = True, listeners: bool = True) -> None:
         # watchdog dumps pass event=False: the dump's own write must not
         # count as liveness, or one stall would re-arm the watchdog into
-        # dumping every interval instead of once per episode
+        # dumping every interval instead of once per episode; aggregate
+        # entries pass listeners=False: they reach the file only
         if event:
             now = time.monotonic()
             tid = threading.get_ident()
@@ -521,7 +773,7 @@ class Tracer:
         if job is not None and "job" not in rec:
             rec = {"job": job, **rec}
         rec = {"t": round(time.time(), 3), "tid": threading.get_ident(), **rec}
-        for fn in list(self._listeners):
+        for fn in (list(self._listeners) if listeners else ()):
             try:
                 fn(rec)
             except Exception:  # noqa: BLE001 — a tap must not break tracing
@@ -699,6 +951,56 @@ class Tracer:
         if threads:
             out["threads"] = self._thread_stacks()
         return out
+
+
+class _Step:
+    """The context manager of ``Tracer.step``."""
+
+    __slots__ = ("tracer", "name", "node")
+
+    def __init__(self, tracer: Tracer, name: str) -> None:
+        self.tracer = tracer
+        self.name = name
+        self.node = None
+
+    def __enter__(self):
+        st = getattr(self.tracer._tl, "stack", None)
+        if st:
+            self.node = self.tracer._enter_aggregate(st, st[-1], self.name)
+        return self.node
+
+    def __exit__(self, *exc) -> bool:
+        if self.node is not None:
+            self.tracer._exit_aggregate(self.node)
+        return False
+
+
+class _Blocked:
+    """The context manager of ``Tracer.blocked``."""
+
+    __slots__ = ("tl", "t0")
+
+    def __init__(self, tl) -> None:
+        self.tl = tl
+
+    def __enter__(self):
+        tl = self.tl
+        tl.blocking = getattr(tl, "blocking", 0) + 1
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        dt = time.perf_counter_ns() - self.t0
+        tl = self.tl
+        tl.blocking -= 1
+        st = getattr(tl, "stack", None)
+        if st:
+            span = st[-1]
+            span.syncs += 1
+            if not tl.blocking:
+                # a nested read's wait is inside the outer one's
+                span.sync_ns += dt
+        return False
 
 
 #: the process-wide tracer (one flight recorder per process, like the one

@@ -13,6 +13,7 @@ import dataclasses
 import numpy as np
 
 from ccx_torch.common.resources import Resource
+from ccx_torch.common.tracing import TRACER
 from ccx_torch.goals.base import GoalConfig
 from ccx_torch.model.tensor_model import TensorClusterModel
 
@@ -36,19 +37,19 @@ class FeasibilityReport:
 
 def feasibility_report(m: TensorClusterModel, cfg: GoalConfig = GoalConfig()) -> FeasibilityReport:
     out: dict[str, str] = {}
-    pvalid = m.partition_valid.cpu().numpy()
-    alive = m.broker_ok.cpu().numpy()
+    pvalid = TRACER.numpy(m.partition_valid)
+    alive = TRACER.numpy(m.broker_ok)
     n_alive = int(alive.sum())
-    a = m.assignment.cpu().numpy()
+    a = TRACER.numpy(m.assignment)
     rf = ((a >= 0) & pvalid[:, None]).sum(axis=1)
-    lead = m.leader_load.cpu().numpy()
-    foll = m.follower_load.cpu().numpy()
+    lead = TRACER.numpy(m.leader_load)
+    foll = TRACER.numpy(m.follower_load)
     if n_alive == 0:
         return FeasibilityReport({"StructuralFeasibility": "no alive brokers"})
 
     # capacity: (a) some partition's leader alone exceeds every broker's
     # allowance, or (b) the total minimal load exceeds the total allowance
-    cap = m.broker_capacity.cpu().numpy()
+    cap = TRACER.numpy(m.broker_capacity)
     for goal, res in _CAPACITY_GOAL_RESOURCE.items():
         allowed = np.where(alive, cap[res] * cfg.capacity_threshold[int(res)], 0.0)
         max_allowed = float(allowed.max(initial=0.0))
@@ -73,7 +74,7 @@ def feasibility_report(m: TensorClusterModel, cfg: GoalConfig = GoalConfig()) ->
             f"per broker x {n_alive} alive brokers"
         )
 
-    racks = m.broker_rack.cpu().numpy()
+    racks = TRACER.numpy(m.broker_rack)
     n_alive_racks = len(set(racks[alive].tolist()))
     max_rf = int(rf.max(initial=0))
     if max_rf > n_alive_racks:
@@ -82,11 +83,11 @@ def feasibility_report(m: TensorClusterModel, cfg: GoalConfig = GoalConfig()) ->
         out["RackAwareDistributionGoal"] = f"replication factor {max_rf} > {n_alive} alive brokers"
         out.setdefault("StructuralFeasibility", f"replication factor {max_rf} > {n_alive} alive brokers")
 
-    tml = m.topic_min_leaders.cpu().numpy()
+    tml = TRACER.numpy(m.topic_min_leaders)
     if tml.any():
-        eligible = alive & ~m.broker_excl_leadership.cpu().numpy()
+        eligible = alive & ~TRACER.numpy(m.broker_excl_leadership)
         n_eligible = int(eligible.sum())
-        topics = m.partition_topic.cpu().numpy()
+        topics = TRACER.numpy(m.partition_topic)
         for t in np.nonzero(tml)[0]:
             n_parts = int(np.sum(pvalid & (topics == t)))
             need = cfg.min_topic_leaders_per_broker * n_eligible
@@ -98,9 +99,9 @@ def feasibility_report(m: TensorClusterModel, cfg: GoalConfig = GoalConfig()) ->
                 )
                 break
 
-    disk_alive = m.disk_alive.cpu().numpy() & alive[:, None]
+    disk_alive = TRACER.numpy(m.disk_alive) & alive[:, None]
     if disk_alive.any():
-        dcap = m.disk_capacity.cpu().numpy()
+        dcap = TRACER.numpy(m.disk_capacity)
         allowance = np.where(disk_alive, dcap * cfg.intra_disk_capacity_threshold, 0.0)
         worst_disk = float(np.where(pvalid, lead[Resource.DISK], 0.0).max(initial=0.0))
         if worst_disk > float(allowance.max(initial=0.0)) * (1 + 1e-6):

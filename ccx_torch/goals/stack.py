@@ -14,6 +14,7 @@ import dataclasses
 import torch
 
 from ccx_torch.common import costmodel
+from ccx_torch.common.tracing import TRACER
 from ccx_torch.goals import kernels  # noqa: F401  (populates the registry)
 from ccx_torch.goals.base import GOAL_REGISTRY, GoalConfig
 from ccx_torch.model.aggregates import BrokerAggregates, broker_aggregates
@@ -66,7 +67,8 @@ def soft_weights(
         else:
             w.append(SOFT_TIER_BASE ** (-soft_rank))
             soft_rank += 1
-    return torch.tensor(w, dtype=torch.float32, device=device)
+    with TRACER.blocked():
+        return torch.tensor(w, dtype=torch.float32, device=device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,7 +79,8 @@ class StackResult:
     costs: torch.Tensor       # float32[G]
 
     def _mask(self) -> torch.Tensor:
-        return torch.tensor(self.hard_mask, device=self.costs.device)
+        with TRACER.blocked():
+            return torch.tensor(self.hard_mask, device=self.costs.device)
 
     @property
     def hard_violations(self) -> torch.Tensor:
@@ -91,9 +94,20 @@ class StackResult:
         return torch.where(self._mask(), 0.0, self.costs * w).sum()
 
     def by_name(self) -> dict[str, tuple[float, float]]:
-        v = self.violations.tolist()
-        c = self.costs.tolist()
+        with TRACER.blocked():
+            v = self.violations.tolist()
+        with TRACER.blocked():
+            c = self.costs.tolist()
         return {n: (v[i], c[i]) for i, n in enumerate(self.names)}
+
+    def lex_key(self) -> list[float]:
+        """(hard violations, then the cost vector) on the host: the key a
+        lexicographic comparison of two stacks reads (two host reads)."""
+        with TRACER.blocked():
+            hard = float(self.hard_violations)
+        with TRACER.blocked():
+            costs = self.costs.tolist()
+        return [hard] + costs
 
 
 @costmodel.instrument("stack-eval")

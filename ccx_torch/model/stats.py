@@ -23,6 +23,7 @@ import dataclasses
 import numpy as np
 
 from ccx_torch.common.resources import Resource
+from ccx_torch.common.tracing import TRACER
 from ccx_torch.model.aggregates import BrokerAggregates, broker_aggregates
 from ccx_torch.model.tensor_model import TensorClusterModel
 
@@ -91,18 +92,24 @@ def _dist(values: np.ndarray) -> tuple[float, float, float, float]:
     )
 
 
+def _count(mask: torch.Tensor) -> int:
+    """The number of set entries of a device mask: one counted host read."""
+    with TRACER.blocked():
+        return int(mask.sum())
+
+
 def cluster_model_stats(
     m: TensorClusterModel, agg: BrokerAggregates | None = None
 ) -> ClusterModelStats:
     """Compute the stats block from a model state (one aggregate pass)."""
     if agg is None:
         agg = broker_aggregates(m)
-    alive = m.broker_ok.cpu().numpy()
-    loads = agg.broker_load.cpu().numpy()           # [RES, B]
-    repl = agg.replica_count.cpu().numpy()
-    lead = agg.leader_count.cpu().numpy()
-    pot = agg.potential_nw_out.cpu().numpy()
-    trc = agg.topic_replica_count.cpu().numpy()     # [T, B]
+    alive = TRACER.numpy(m.broker_ok)
+    loads = TRACER.numpy(agg.broker_load)           # [RES, B]
+    repl = TRACER.numpy(agg.replica_count)
+    lead = TRACER.numpy(agg.leader_count)
+    pot = TRACER.numpy(agg.potential_nw_out)
+    trc = TRACER.numpy(agg.topic_replica_count)     # [T, B]
 
     avg: dict[str, float] = {}
     std: dict[str, float] = {}
@@ -135,14 +142,14 @@ def cluster_model_stats(
 
     return ClusterModelStats(
         n_brokers=int(alive.sum()),
-        n_replicas=int(m.replica_valid.sum()),
+        n_replicas=_count(m.replica_valid),
         n_topics=int(has.sum()) if cells.shape[1] > 0 else 0,
-        n_partitions=int(m.partition_valid.sum()),
+        n_partitions=_count(m.partition_valid),
         avg=avg,
         std=std,
         min=mn,
         max=mx,
-        n_hosts=int(np.unique(m.broker_host.cpu().numpy()[alive]).size),
+        n_hosts=int(np.unique(TRACER.numpy(m.broker_host)[alive]).size),
     )
 
 
@@ -154,12 +161,12 @@ def host_rollup(
     carry summed loads, capacity, and replica/leader counts."""
     if agg is None:
         agg = broker_aggregates(m)
-    alive = m.broker_ok.cpu().numpy()
-    hosts = m.broker_host.cpu().numpy()
-    loads = agg.broker_load.cpu().numpy()
-    caps = m.broker_capacity.cpu().numpy()
-    repl = agg.replica_count.cpu().numpy()
-    lead = agg.leader_count.cpu().numpy()
+    alive = TRACER.numpy(m.broker_ok)
+    hosts = TRACER.numpy(m.broker_host)
+    loads = TRACER.numpy(agg.broker_load)
+    caps = TRACER.numpy(m.broker_capacity)
+    repl = TRACER.numpy(agg.replica_count)
+    lead = TRACER.numpy(agg.leader_count)
     out: dict[int, dict[str, float]] = {}
     for h in np.unique(hosts[alive]):
         sel = alive & (hosts == h)

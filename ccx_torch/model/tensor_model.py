@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ccx_torch.common.resources import NUM_RESOURCES, Resource
+from ccx_torch.common.tracing import TRACER
 from ccx_torch.device import resolve_device
 
 
@@ -150,7 +151,8 @@ def model_from_arrays(
             a = a.astype(np.float32)
         else:
             a = a.astype(bool)
-        kw[name] = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        with TRACER.blocked():
+            kw[name] = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     return TensorClusterModel(num_topics=int(num_topics), num_racks=int(num_racks), **kw)
 
 

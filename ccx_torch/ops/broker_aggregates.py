@@ -37,6 +37,7 @@ import torch
 
 from ccx_torch.common import compilestats
 from ccx_torch.common.resources import NUM_RESOURCES, Resource
+from ccx_torch.common.tracing import TRACER
 from ccx_torch.model.aggregates import BrokerAggregates
 from ccx_torch.model.tensor_model import TensorClusterModel
 
@@ -160,10 +161,12 @@ def build_topic_index(partition_topic: torch.Tensor, partition_valid: torch.Tens
     T = num_topics
     in_range = (partition_topic >= 0) & (partition_topic < T)
     key = torch.where(partition_valid, torch.where(in_range, partition_topic, T), T + 1).long()
-    counts = torch.bincount(key, minlength=T + 2)
+    with TRACER.blocked():
+        counts = torch.bincount(key, minlength=T + 2)
     offsets = torch.zeros(T + 1, dtype=torch.int32, device=key.device)
     offsets[1:] = torch.cumsum(counts[:T], 0)
-    n_live = int(counts[: T + 1].sum())
+    with TRACER.blocked():
+        n_live = int(counts[: T + 1].sum())
     order = torch.argsort(key, stable=True)[:n_live].to(torch.int32)
     return TopicIndex(order, offsets)
 

@@ -43,8 +43,7 @@ Every result, cold or warm, carries a ``cost_model`` block
 (``ccx_torch.common.costmodel``): the run's instrumented calls per program
 and per phase, projected onto the card's roofline. With capture armed a
 cold run also measures the first call of each new shape and reads the
-measurements in a ``cost-capture`` phase; a warm run never captures. Each
-phase runs under a named profiler range (``ccx_torch.common.profiling``).
+measurements in a ``cost-capture`` phase; a warm run never captures.
 
 It runs on the model's device (build the model on CUDA, the default, or pass
 ``device="cpu"`` to the model builder). ``OptimizeOptions`` carries the JAX
@@ -67,7 +66,6 @@ import numpy as np
 import torch
 
 from ccx_torch.common import costmodel
-from ccx_torch.common.profiling import annotate
 from ccx_torch.common.tracing import TRACER
 from ccx_torch.goals.base import GOAL_REGISTRY, GoalConfig
 from ccx_torch.goals.stack import DEFAULT_GOAL_ORDER, StackResult, evaluate_stack
@@ -321,8 +319,7 @@ class OptimizerResult:
 def _lex_better(a: StackResult, b: StackResult) -> bool:
     """True when a's (hard violations, cost vector) beats b's
     lexicographically (hard feasibility outranks every soft tier)."""
-    ka = [float(a.hard_violations)] + a.costs.tolist()
-    kb = [float(b.hard_violations)] + b.costs.tolist()
+    ka, kb = a.lex_key(), b.lex_key()
     tol = 1e-6
     for x, y in zip(ka, kb):
         if x < y - tol:
@@ -371,18 +368,26 @@ def _compute_plan(m: TensorClusterModel, dcols: ColumnarDiff, opts: OptimizeOpti
     )
 
 
+def _hard_violations(stack: StackResult) -> float:
+    """A stack's hard violations on the host: a counted host read."""
+    with TRACER.blocked():
+        return float(stack.hard_violations)
+
+
 def _sync(device: torch.device) -> None:
+    """Drain ``device``'s queue: a host sync, counted on the open span."""
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        with TRACER.blocked():
+            torch.cuda.synchronize(device)
 
 
 class _Run:
     """The bookkeeping one pipeline run shares between its stages: phase
     seconds, the per-move-kind counters and the convergence segments by
     phase. Each phase calls ``progress_cb(name)`` as it starts, runs under
-    a tracing span and a named profiler range, and ends with a device
-    synchronize, so its span wall (the ``phase_seconds`` entry) covers its
-    device work."""
+    a tracing span (a named range on a profiler's timeline while one
+    records) and ends with a device synchronize, so its span wall (the
+    ``phase_seconds`` entry) covers its device work."""
 
     def __init__(self, device: torch.device, progress_cb=None) -> None:
         self.device = device
@@ -405,8 +410,7 @@ class _Run:
             self.progress_cb(name)
         s = TRACER.start(name, kind="phase", device=self.device, **attrs)
         try:
-            with annotate(f"ccx:{name}", self.device):
-                yield
+            yield
             _sync(self.device)
         finally:
             TRACER.end(s)
@@ -445,19 +449,30 @@ def optimize(
     fleet scheduler for its whole duration, and ``cancel`` (an event the
     transport sets when its client goes away) cancels it at the next chunk
     boundary with ``JobCancelled``. With no other job registered the
-    scheduled run equals the unscheduled one."""
+    scheduled run equals the unscheduled one. The seconds the job waited
+    for admission are the root span's ``grantWaitSeconds``."""
     if job is not None:
         from ccx_torch.search.scheduler import FLEET
 
         cluster_id, priority = job if isinstance(job, tuple) else (job, 0)
-        with FLEET.job(str(cluster_id), int(priority), cancel_event=cancel):
-            return optimize(m, cfg, goal_names, opts, warm_start, progress_cb)
+        outer = FLEET.current()
+        with FLEET.job(str(cluster_id), int(priority), cancel_event=cancel) as h:
+            admit_s = h.admit_wait_s if outer is None else 0.0
+            return _optimize_root(m, cfg, goal_names, opts, warm_start, progress_cb, admit_s)
+    return _optimize_root(m, cfg, goal_names, opts, warm_start, progress_cb, 0.0)
+
+
+def _optimize_root(m, cfg, goal_names, opts, warm_start, progress_cb,
+                   admit_s: float) -> OptimizerResult:
+    """``optimize`` under its root span."""
     cost0 = costmodel.exec_snapshot()
     warm = warm_start if (warm_start is not None and opts.incremental.armed) else None
     root = TRACER.start(
         "optimize", kind="op", P=int(m.P), B=int(m.B), goals=len(goal_names),
         **({"warm": True} if warm is not None else {}),
     )
+    if admit_s:
+        TRACER.note_grant_wait(admit_s)
     try:
         res = None
         if warm is not None:
@@ -636,7 +651,7 @@ def _optimize_cold(
             n_polish += polish.n_moves
         # the repair retries run with the polish off too
         for _ in range(max(opts.max_repair_rounds - 1, 0)):
-            if float(stack_after.hard_violations) <= 0:
+            if _hard_violations(stack_after) <= 0:
                 break
             model, n_r = hard_repair(model, cfg, goal_names, backend=backend)
             n_polish += n_r
@@ -803,7 +818,7 @@ def _optimize_warm(
     if stack_after is None:
         with phase("warm-finish"):
             stack_after, bank_press = inc.warm_finish(model, cfg, goal_names)
-    if not opts.incremental.leadership_only and float(stack_after.hard_violations) > 0:
+    if not opts.incremental.leadership_only and _hard_violations(stack_after) > 0:
         # a structural window's search kept a hard violation: the cold
         # pipeline's repair retries, at the warm budget (not in the JAX
         # package's warm path), shipped only when they clear every one; a

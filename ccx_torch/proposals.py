@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ccx_torch.common.faults import FAULTS
+from ccx_torch.common.tracing import TRACER
 from ccx_torch.model.tensor_model import TensorClusterModel
 
 
@@ -136,7 +137,8 @@ def columnar_diff(before: TensorClusterModel, after: TensorClusterModel) -> Colu
     changed = before.partition_valid & (
         (a0 != a1).any(1) | (l0 != l1) | (d0 != d1).any(1)
     )
-    idx = torch.nonzero(changed)[:, 0]
+    with TRACER.blocked():
+        idx = torch.nonzero(changed)[:, 0]
     g0, g1 = a0[idx], a1[idx]
     R = a0.shape[1]
 
@@ -154,4 +156,4 @@ def columnar_diff(before: TensorClusterModel, after: TensorClusterModel) -> Colu
         "oldDisks": torch.where(g0 >= 0, d0[idx], -1),
         "newDisks": torch.where(g1 >= 0, d1[idx], -1),
     }
-    return ColumnarDiff({k: cols[k].int().cpu().numpy() for k in COLUMNS})
+    return ColumnarDiff({k: TRACER.numpy(cols[k].int()) for k in COLUMNS})

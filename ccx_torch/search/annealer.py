@@ -49,6 +49,7 @@ import torch
 
 from ccx_torch.common import costmodel
 from ccx_torch.common.resources import Resource
+from ccx_torch.common.tracing import TRACER
 from ccx_torch.goals import topic_terms as tt
 from ccx_torch.goals.base import GOAL_REGISTRY, GoalConfig
 from ccx_torch.goals.stack import DEFAULT_GOAL_ORDER, StackResult, evaluate_stack, soft_weights
@@ -277,9 +278,13 @@ def hot_partition_list(
     capacity. Returns (sorted ids int32, padded to ``_evac_bucket(P)`` —
     or to P when more offenders exist — and their count)."""
     hot = _structural_hot(m, goal_names)
-    if _scores_capacity(goal_names) and not bool(hot.any()):
-        hot = _capacity_hot(m, cfg)
-    idx = torch.nonzero(hot)[:, 0].int()
+    if _scores_capacity(goal_names):
+        with TRACER.blocked():
+            none_hot = not bool(hot.any())
+        if none_hot:
+            hot = _capacity_hot(m, cfg)
+    with TRACER.blocked():
+        idx = torch.nonzero(hot)[:, 0].int()
     n = idx.numel()
     bucket = _evac_bucket(m.P)
     size = max(bucket if n <= bucket else m.P, 1)
@@ -1147,9 +1152,14 @@ def best_chain_index(cost_vecs: np.ndarray) -> int:
 
 def real_sizes(m: TensorClusterModel) -> tuple[int, int]:
     """(valid partitions, one past the last valid broker)."""
-    p_real = int(m.partition_valid.sum())
-    bv = torch.nonzero(m.broker_valid)
-    return p_real, (int(bv.max()) + 1) if bv.numel() else 0
+    with TRACER.blocked():
+        p_real = int(m.partition_valid.sum())
+    with TRACER.blocked():
+        bv = torch.nonzero(m.broker_valid)
+    if not bv.numel():
+        return p_real, 0
+    with TRACER.blocked():
+        return p_real, int(bv.max()) + 1
 
 
 def _swap_ramp_of(opts: AnnealOptions, n: int) -> float:
@@ -1200,9 +1210,11 @@ def step_kwargs(
 ) -> dict:
     """The keyword arguments of ``engine``'s step function."""
     hard_mask = tuple(GOAL_REGISTRY[n].hard for n in goal_names)
+    with TRACER.blocked():
+        hard_arr = torch.tensor(hard_mask, device=m.device)
     kw = dict(
         m=m, pp=pp,
-        hard_arr=torch.tensor(hard_mask, device=m.device),
+        hard_arr=hard_arr,
         weights=soft_weights(hard_mask, m.device),
         group=group,
     )
@@ -1254,7 +1266,8 @@ def _row_values(row) -> list[float]:
     """A tap row as floats; a row that is not a sequence of numbers raises
     TypeError or ValueError. Reading a device row is the host sync."""
     if torch.is_tensor(row):
-        row = row.tolist()
+        with TRACER.blocked():
+            row = row.tolist()
     return [float(x) for x in row]
 
 
@@ -1262,8 +1275,9 @@ class _ProbeReader:
     """Reads a chunk's probe scalar without a host sync of its own. On a
     CUDA tensor the value is copied into pinned memory behind the queued
     work and read once that copy has landed (an event query); until then
-    the last landed value stands, so the energy may be a chunk stale. A
-    CPU tensor is read directly."""
+    the last landed value stands, so the energy may be a chunk stale. That
+    read of host memory never waits, and is not counted as a sync. A CPU
+    tensor is read directly, a counted read (``TRACER.blocked``)."""
 
     def __init__(self) -> None:
         self.buf = None
@@ -1273,7 +1287,8 @@ class _ProbeReader:
 
     def push(self, val) -> None:
         if val.device.type != "cuda":
-            self.value = float(val)
+            with TRACER.blocked():
+                self.value = float(val)
             return
         if self.buf is None:
             self.buf = torch.zeros((), dtype=val.dtype, pin_memory=True)
@@ -1326,7 +1341,6 @@ def drive_chunks(run_one, carry, *, total: int, chunk: int, probe=None,
     drops the plateau exit and the drive runs its fixed budget; an error
     from the read itself (a failed device op) propagates."""
     from ccx_torch.common.convergence import lex_improved
-    from ccx_torch.common.tracing import TRACER
     from ccx_torch.search.scheduler import FLEET
 
     step = max(int(chunk), 1)
@@ -1344,7 +1358,10 @@ def drive_chunks(run_one, carry, *, total: int, chunk: int, probe=None,
                 carry, done = run_one(carry, off)
             if reader is not None and plateau is None:
                 reader.push(probe(carry))
-            stop = done is not None and bool(done)
+            stop = False
+            if done is not None:
+                with TRACER.blocked():
+                    stop = bool(done)
             energy = None
             done_plateau = False
             if plateau is not None:
@@ -1563,7 +1580,11 @@ def anneal(
     stack_before = evaluate_stack(m, cfg, goal_names)
     p_real, b_real = real_sizes(m)
     evac_idx, n_evac = evac if evac is not None else hot_partition_list(m, goal_names, cfg)
-    n_evac = int(n_evac)
+    if torch.is_tensor(n_evac):
+        with TRACER.blocked():
+            n_evac = int(n_evac)
+    else:
+        n_evac = int(n_evac)
     group = (
         make_topic_group(m, max_partitions_per_topic(m)) if stack_needs_topic(goal_names) else None
     )
@@ -1599,17 +1620,18 @@ def anneal(
 
     def run_steps(lo: int, hi: int) -> None:
         for t in range(lo, hi):
-            temp = temperature(t)
-            share = pp.p_swap + ramp * t
-            if engine == "single":
-                _anneal_step(state, gen, temp, evac_idx, n_evac, **kw)
-            elif engine == "batched":
-                d = draw_batched(gen, C, moves, m, pp, n_evac)
-                _anneal_step_batched(state, d, temp, share, evac_idx, n_evac, **kw)
-            else:
-                for _ in range(moves):
-                    d = draw_unified(gen, C, m, pp, n_evac)
-                    _unified_move(state, d, temp, share, evac_idx, n_evac, **kw)
+            with TRACER.step("sa-step"):
+                temp = temperature(t)
+                share = pp.p_swap + ramp * t
+                if engine == "single":
+                    _anneal_step(state, gen, temp, evac_idx, n_evac, **kw)
+                elif engine == "batched":
+                    d = draw_batched(gen, C, moves, m, pp, n_evac)
+                    _anneal_step_batched(state, d, temp, share, evac_idx, n_evac, **kw)
+                else:
+                    for _ in range(moves):
+                        d = draw_unified(gen, C, m, pp, n_evac)
+                        _unified_move(state, d, temp, share, evac_idx, n_evac, **kw)
 
     convergence = plateau_info = None
     # the cost ledger's signature of this run's chunk: the state's shapes
@@ -1670,18 +1692,26 @@ def anneal(
         if plateau is not None:
             plateau_info = plateau.to_json(budget_chunks=(n + chunk - 1) // chunk)
 
-    best = best_chain_index(state.cost_vec.cpu().numpy())
+    with TRACER.blocked():
+        cost_vecs = state.cost_vec.cpu().numpy()
+    best = best_chain_index(cost_vecs)
     result_model = with_placement(m, state, best)
+    with TRACER.blocked():
+        n_accepted = int(state.n_accepted[best])
+    with TRACER.blocked():
+        n_prop_kind = tuple(state.n_prop_kind[best].tolist())
+    with TRACER.blocked():
+        n_acc_kind = tuple(state.n_acc_kind[best].tolist())
     return AnnealResult(
         model=result_model,
         stack_before=stack_before,
         stack_after=evaluate_stack(result_model, cfg, goal_names),
-        n_accepted=int(state.n_accepted[best]),
+        n_accepted=n_accepted,
         n_chains=C,
         n_steps=opts.n_steps,
         best_chain=best,
-        n_prop_kind=tuple(state.n_prop_kind[best].tolist()),
-        n_acc_kind=tuple(state.n_acc_kind[best].tolist()),
+        n_prop_kind=n_prop_kind,
+        n_acc_kind=n_acc_kind,
         engine=engine,
         convergence=convergence,
         plateau=plateau_info,

@@ -30,6 +30,8 @@ chunk writes one convergence-tap row; ``chunk_iters=0`` runs one loop that
 reads the flag every iteration. Inert iterations change nothing, so both
 give the same result. Within a chunk the host also looks at the flag without
 waiting (``_poll_stop``) and stops queueing iterations once it sees it set.
+Each iteration is one aggregate span (``<label>-iter``, ``TRACER.step``),
+and each read of device data a counted host sync (``TRACER.blocked``).
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ import torch
 
 from ccx_torch.common import costmodel
 from ccx_torch.common.resources import Resource
+from ccx_torch.common.tracing import TRACER
 from ccx_torch.goals import topic_terms as tt
 from ccx_torch.goals.base import GOAL_REGISTRY, GoalConfig
 from ccx_torch.goals.stack import DEFAULT_GOAL_ORDER, StackResult, evaluate_stack
@@ -333,12 +336,14 @@ def _descend(ss, m, group, c: Pairs, feas, hard_arr, guard_on, guard_cols, vecto
 
 def _poll_stop(poll: dict, live: torch.Tensor) -> bool:
     """Whether the host can see, without waiting, that the descent has
-    stopped. On the CPU the flag is read directly. On a card the flag is
-    copied to pinned memory behind the queued work and read once that copy
-    has landed, so the answer may lag a few iterations (the iterations in
-    between are inert)."""
+    stopped. On the CPU the flag is read directly (a counted read). On a
+    card the flag is copied to pinned memory behind the queued work and read
+    once that copy has landed, so the answer may lag a few iterations (the
+    iterations in between are inert); that read never waits and is not
+    counted as a sync."""
     if live.device.type != "cuda":
-        return not bool(live)
+        with TRACER.blocked():
+            return not bool(live)
     if "buf" not in poll:
         poll["buf"] = torch.zeros((), dtype=torch.bool, pin_memory=True)
         poll["event"] = torch.cuda.Event()
@@ -352,6 +357,26 @@ def _poll_stop(poll: dict, live: torch.Tensor) -> bool:
         poll["event"].record()
         poll["pending"] = True
     return False
+
+
+def _goal_masks(goal_names, dev) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hard goals, the TopicReplicaDistribution column) as bool masks on
+    ``dev``: two host-to-device copies, counted host syncs on a card."""
+    with TRACER.blocked():
+        hard = torch.tensor(tuple(GOAL_REGISTRY[n].hard for n in goal_names), device=dev)
+    with TRACER.blocked():
+        guard = torch.tensor(tuple(n == "TopicReplicaDistributionGoal" for n in goal_names),
+                             device=dev)
+    return hard, guard
+
+
+def _kind_counts(ss: SearchState) -> tuple[tuple, tuple]:
+    """The proposed and accepted counts per move kind, read to the host."""
+    with TRACER.blocked():
+        prop = tuple(ss.n_prop_kind[0].tolist())
+    with TRACER.blocked():
+        acc = tuple(ss.n_acc_kind[0].tolist())
+    return prop, acc
 
 
 def _drive_descent(iteration, ss: SearchState, goal_names, opts, dev, label: str):
@@ -374,12 +399,15 @@ def _drive_descent(iteration, ss: SearchState, goal_names, opts, dev, label: str
     def live() -> torch.Tensor:
         return (it < opts.max_iters) & (stale < opts.patience)
 
+    step = f"{label}-iter"
+
     def one() -> None:
-        lv = live()
-        n = iteration(lv)
-        it.add_(lv.int())
-        stale.copy_(torch.where(lv, torch.where(n > 0, 0, stale + 1), stale))
-        moves.add_(n)
+        with TRACER.step(step):
+            lv = live()
+            n = iteration(lv)
+            it.add_(lv.int())
+            stale.copy_(torch.where(lv, torch.where(n > 0, 0, stale + 1), stale))
+            moves.add_(n)
 
     convergence = None
     if opts.chunk_iters > 0:
@@ -405,11 +433,19 @@ def _drive_descent(iteration, ss: SearchState, goal_names, opts, dev, label: str
         )
     else:
         def loop() -> None:
-            while bool(live()):
+            while True:
+                with TRACER.blocked():
+                    go = bool(live())
+                if not go:
+                    break
                 one()
 
         costmodel.instrument(f"{label}-loop", iters=opts.max_iters, sig=sig, device=dev)(loop)()
-    return int(it), int(moves), convergence
+    with TRACER.blocked():
+        n_iters = int(it)
+    with TRACER.blocked():
+        n_moves = int(moves)
+    return n_iters, n_moves, convergence
 
 
 @dataclasses.dataclass
@@ -480,10 +516,7 @@ class PolishIteration:
         self.scorer = make_move_scorer(m, goal_names, cfg)
         self.swap_scorer = make_swap_scorer(m, goal_names, cfg) if self.n_swap else None
         self.vector_fn = make_cost_vector_fn(m, goal_names, cfg)
-        self.hard_arr = torch.tensor(tuple(GOAL_REGISTRY[n].hard for n in goal_names), device=dev)
-        self.guard_cols = torch.tensor(
-            tuple(n == "TopicReplicaDistributionGoal" for n in goal_names), device=dev
-        )
+        self.hard_arr, self.guard_cols = _goal_masks(goal_names, dev)
         self.chain = torch.zeros(self.n_single, dtype=torch.long, device=dev)
         #: candidates whose b side is real (None: singles only)
         self.dual = None
@@ -582,14 +615,15 @@ def greedy_optimize(
 
     n_iters, moves, convergence = _drive_descent(iteration, ss, goal_names, opts, dev, "polish")
     result_model = with_placement(m, ss)
+    n_prop_kind, n_acc_kind = _kind_counts(ss)
     return GreedyResult(
         model=result_model,
         stack_before=stack_before,
         stack_after=evaluate_stack(result_model, cfg, goal_names),
         n_moves=moves,
         n_iters=n_iters,
-        n_prop_kind=tuple(ss.n_prop_kind[0].tolist()),
-        n_acc_kind=tuple(ss.n_acc_kind[0].tolist()),
+        n_prop_kind=n_prop_kind,
+        n_acc_kind=n_acc_kind,
         convergence=convergence,
     )
 
@@ -656,10 +690,7 @@ class SwapPolishIteration:
         )
         self.swap_scorer = make_swap_scorer(m, goal_names, cfg)
         self.vector_fn = make_cost_vector_fn(m, goal_names, cfg)
-        self.hard_arr = torch.tensor(tuple(GOAL_REGISTRY[n].hard for n in goal_names), device=dev)
-        self.guard_cols = torch.tensor(
-            tuple(n == "TopicReplicaDistributionGoal" for n in goal_names), device=dev
-        )
+        self.hard_arr, self.guard_cols = _goal_masks(goal_names, dev)
         uw = usage_weights(dev)
         self.u_lead_p = uw @ m.leader_load      # [P] combined usage, leader role
         self.u_foll_p = uw @ m.follower_load
@@ -671,7 +702,8 @@ class SwapPolishIteration:
         self.is_swap = torch.arange(self.N, device=dev) < self.k_sw
         #: proposals per iteration by move kind (coupled leadership
         #: transfers are single moves, the pairs replica swaps)
-        self.proposed = torch.tensor([self.k_ld, self.k_sw, 0], dtype=torch.int32, device=dev)
+        with TRACER.blocked():
+            self.proposed = torch.tensor([self.k_ld, self.k_sw, 0], dtype=torch.int32, device=dev)
         # the usage a leadership transfer moves, and its damping: the count
         # fix wants low-usage-delta leaders, which the usage tiers above
         # LeaderReplica do not veto
@@ -831,13 +863,14 @@ def swap_polish(
     n_iters, moves, convergence = _drive_descent(iteration, ss, goal_names, opts, m.device,
                                                  "swap-polish")
     result_model = with_placement(m, ss)
+    n_prop_kind, n_acc_kind = _kind_counts(ss)
     return GreedyResult(
         model=result_model,
         stack_before=stack_before,
         stack_after=None if defer_stack_after else evaluate_stack(result_model, cfg, goal_names),
         n_moves=moves,
         n_iters=n_iters,
-        n_prop_kind=tuple(ss.n_prop_kind[0].tolist()),
-        n_acc_kind=tuple(ss.n_acc_kind[0].tolist()),
+        n_prop_kind=n_prop_kind,
+        n_acc_kind=n_acc_kind,
         convergence=convergence,
     )

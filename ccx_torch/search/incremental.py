@@ -44,6 +44,7 @@ import torch
 from ccx_torch.common import costmodel
 from ccx_torch.common.devmem import DEVMEM
 from ccx_torch.common.faults import FAULTS
+from ccx_torch.common.tracing import TRACER
 from ccx_torch.goals.base import GoalConfig
 from ccx_torch.goals.stack import StackResult, evaluate_stack
 from ccx_torch.model.aggregates import broker_aggregates
@@ -416,13 +417,15 @@ def drift_hot_list(model: TensorClusterModel, touched: torch.Tensor,
     from ccx_torch.search.annealer import _evac_bucket, hot_partition_list_device
 
     evac_s, n_s = hot_partition_list_device(model, goal_names, cfg)
-    n_structural = int(n_s)
+    with TRACER.blocked():
+        n_structural = int(n_s)
     a = model.assignment
     touched = touched.to(a.device)
     hot = ((a >= 0) & touched[a.clamp(0, model.B - 1).long()]).any(1) & model.partition_valid
     if n_structural:
         hot[evac_s[:n_structural].long()] = True
-    drift_idx = torch.nonzero(hot)[:, 0]
+    with TRACER.blocked():
+        drift_idx = torch.nonzero(hot)[:, 0]
     bucket = _evac_bucket(model.P)
     if drift_idx.numel() > bucket:
         drift_idx = drift_idx[:: (drift_idx.numel() + bucket - 1) // bucket][:bucket]
@@ -517,7 +520,8 @@ def reoptimize(
         state0, stack_before, new_pressure, touched_dev, touched_n = warm_init(
             wm, warm.pressure if has_banked else None, cfg, goal_names
         )
-        structural = float(stack_before.hard_violations) > 0
+        with TRACER.blocked():
+            structural = float(stack_before.hard_violations) > 0
         evac = n_evac = None
         n_offenders = 0
         if structural:
@@ -586,12 +590,16 @@ def reoptimize(
             else:
                 stack_after = lead.stack_after
 
+    touched = int(wm.B)
+    if has_banked:
+        with TRACER.blocked():
+            touched = int(touched_n)
     info = {
         "warmStart": True,
         "coldStart": False,
         "session": warm.session,
         "baseGeneration": warm.generation,
-        "touchedBrokers": int(touched_n) if has_banked else int(wm.B),
+        "touchedBrokers": touched,
         "driftPartitions": n_evac,
         "structuralOffenders": int(n_offenders),
         "swapIters": iopts.warm_swap_iters,
@@ -630,7 +638,9 @@ def repair_retries(model: TensorClusterModel, cfg: GoalConfig, goal_names: tuple
         model, _, _ = finalize_preferred_leaders(res.model, cfg, goal_names, None, reevaluate=False)
         moves += n_repair + res.n_moves
         stack, pressure = warm_finish(model, cfg, goal_names)
-        if float(stack.hard_violations) <= 0:
+        with TRACER.blocked():
+            feasible = float(stack.hard_violations) <= 0
+        if feasible:
             return model, stack, pressure, moves, rounds
     return None
 
@@ -641,9 +651,7 @@ def _significantly_lex_worse(after: StackResult, before: StackResult) -> bool:
     module's asymmetric tolerances."""
     from ccx_torch.common.convergence import lex_improved
 
-    ka = (float(after.hard_violations),) + tuple(after.costs.tolist())
-    kb = (float(before.hard_violations),) + tuple(before.costs.tolist())
-    return lex_improved(kb, ka)
+    return lex_improved(tuple(before.lex_key()), tuple(after.lex_key()))
 
 
 class ColdStartRequired(Exception):

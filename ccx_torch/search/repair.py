@@ -23,6 +23,7 @@ import torch
 
 from ccx_torch.common import costmodel
 from ccx_torch.common.resources import NUM_RESOURCES, Resource
+from ccx_torch.common.tracing import TRACER
 from ccx_torch.goals.base import GoalConfig
 from ccx_torch.model.aggregates import broker_aggregates
 from ccx_torch.model.tensor_model import TensorClusterModel
@@ -259,7 +260,9 @@ def hard_repair(
             assignment, replica_disk, n, n_over, n_struct = _sweep(
                 m, assignment, leader_slot, replica_disk, gen, **kw
             )
-            n, n_over, n_struct = (int(x) for x in torch.stack([n, n_over, n_struct]).tolist())
+            with TRACER.blocked():
+                counts = torch.stack([n, n_over, n_struct]).tolist()
+            n, n_over, n_struct = (int(x) for x in counts)
             total += n
             if n == 0:
                 break
@@ -285,7 +288,8 @@ def canonicalize_preferred_leaders(m: TensorClusterModel) -> tuple[TensorCluster
     eligible = (
         m.partition_valid & (a[:, 0] >= 0) & (m.broker_ok & ~m.broker_excl_leadership)[b0]
     )
-    idx = torch.nonzero(eligible & (lead != 0) & ~m.partition_immovable)[:, 0]
+    with TRACER.blocked():
+        idx = torch.nonzero(eligible & (lead != 0) & ~m.partition_immovable)[:, 0]
     n = idx.numel()
     if n == 0:
         return m, 0
@@ -299,7 +303,8 @@ def canonicalize_preferred_leaders(m: TensorClusterModel) -> tuple[TensorCluster
         return out
 
     new_lead = lead.clone()
-    new_lead[idx] = 0
+    with TRACER.blocked():
+        new_lead[idx] = 0
     return (
         m.replace(assignment=swap0(a), leader_slot=new_lead, replica_disk=swap0(m.replica_disk)),
         n,
@@ -350,23 +355,23 @@ def topic_rebalance(
     Randomness comes from ``np.random.default_rng(seed)``, so a seed gives
     the same placement as the JAX package's ``topic_rebalance``. Returns
     (model, moves applied)."""
-    a = m.assignment.cpu().numpy().copy()
-    dsk = m.replica_disk.cpu().numpy().copy()
-    pvalid = m.partition_valid.cpu().numpy()
-    topic = m.partition_topic.cpu().numpy()
-    alive = m.broker_ok.cpu().numpy()
-    recv_ok = alive & ~m.broker_excl_replicas.cpu().numpy()
-    imm = m.partition_immovable.cpu().numpy()
-    rack = m.broker_rack.cpu().numpy()
-    lslot = m.leader_slot.cpu().numpy().copy()
+    a = TRACER.numpy(m.assignment).copy()
+    dsk = TRACER.numpy(m.replica_disk).copy()
+    pvalid = TRACER.numpy(m.partition_valid)
+    topic = TRACER.numpy(m.partition_topic)
+    alive = TRACER.numpy(m.broker_ok)
+    recv_ok = alive & ~TRACER.numpy(m.broker_excl_replicas)
+    imm = TRACER.numpy(m.partition_immovable)
+    rack = TRACER.numpy(m.broker_rack)
+    lslot = TRACER.numpy(m.leader_slot).copy()
     T, B, P, R = m.num_topics, m.B, m.P, m.R
 
     thr = cfg.topic_replica_balance_threshold
     capthr = np.asarray(cfg.capacity_threshold)
-    cap_eff = m.broker_capacity.cpu().numpy() * capthr[:, None]    # [RES, B]
+    cap_eff = TRACER.numpy(m.broker_capacity) * capthr[:, None]    # [RES, B]
     cap_eff = np.where(cap_eff > 0, cap_eff, np.inf)
-    lead_load = m.leader_load.cpu().numpy()                        # [RES, P]
-    foll_load = m.follower_load.cpu().numpy()
+    lead_load = TRACER.numpy(m.leader_load)                        # [RES, P]
+    foll_load = TRACER.numpy(m.follower_load)
     rng = np.random.default_rng(seed)
     total_moved = 0
 
@@ -378,7 +383,7 @@ def topic_rebalance(
     tmat = np.repeat(topic, R).reshape(P, R)
     slot_load = np.where(is_l[None], lead_load[:, :, None], foll_load[:, :, None])  # [RES, P, R]
     D = m.D
-    disk_alive = m.disk_alive.cpu().numpy()                        # [B, D]
+    disk_alive = TRACER.numpy(m.disk_alive)                        # [B, D]
 
     # aggregates kept per accepted move; per-topic totals (so the band
     # uppers and the replica-count cap) do not change under moves
@@ -407,8 +412,8 @@ def topic_rebalance(
         int(cfg.max_replicas_per_broker),
     )
 
-    excl_lead = m.broker_excl_leadership.cpu().numpy()
-    tmin = m.topic_min_leaders.cpu().numpy()
+    excl_lead = TRACER.numpy(m.broker_excl_leadership)
+    tmin = TRACER.numpy(m.topic_min_leaders)
     need_tlc = move_leaders and bool(tmin.any())
     if need_tlc:
         tlc = np.zeros((T, B), np.int64)

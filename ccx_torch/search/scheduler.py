@@ -81,7 +81,7 @@ class JobHandle:
     __slots__ = (
         "job_id", "priority", "seq", "resident", "waiting", "granted",
         "chunks", "wait_s", "t_registered", "t_first_chunk", "last_grant",
-        "drives", "cancel_event",
+        "drives", "cancel_event", "admit_wait_s",
     )
 
     def __init__(self, job_id: str, priority: int, seq: int) -> None:
@@ -94,6 +94,8 @@ class JobHandle:
         self.granted = False
         self.chunks = 0
         self.wait_s = 0.0
+        #: seconds the job waited for admission (``register``)
+        self.admit_wait_s = 0.0
         self.t_registered = time.monotonic()
         self.t_first_chunk: float | None = None
         #: grant-order stamp for round-robin within a priority
@@ -214,7 +216,8 @@ class ChunkScheduler:
         transport on client disconnect, plus :meth:`kick`) cancels the
         job at the next chunk boundary (:class:`JobCancelled`); exit via
         ANY path — completion, cancellation, engine error — unregisters
-        the job and frees its grant/residency."""
+        the job and frees its grant/residency. The seconds the
+        registration waited are the handle's ``admit_wait_s``."""
         outer = getattr(self._tl, "job", None)
         if outer is not None:
             yield outer
@@ -222,7 +225,9 @@ class ChunkScheduler:
         from ccx_torch.common.devmem import DEVMEM
         from ccx_torch.common.tracing import TRACER
 
+        t0 = time.monotonic()
         h = self.register(job_id, priority, cancel_event=cancel_event)
+        h.admit_wait_s = time.monotonic() - t0
         # admission hook of the unified device-memory ledger
         # (ccx_torch.common.devmem): the registering job's priority
         # re-prices every device-resident entry carrying this job/session
@@ -277,7 +282,10 @@ class ChunkScheduler:
         outside, so the next job can dispatch meanwhile). Raises
         :class:`JobCancelled` when the job's cancel event is set — BEFORE
         dispatching, so "cancel mid-wave" frees the grant within one
-        chunk: the in-flight chunk finishes, the next never starts."""
+        chunk: the in-flight chunk finishes, the next never starts. The
+        wait is added to the caller's open span (``grantWaitSeconds``)."""
+        from ccx_torch.common.tracing import TRACER
+
         t0 = time.monotonic()
         with self._cond:
             h.waiting = True
@@ -298,13 +306,15 @@ class ChunkScheduler:
             h.last_grant = self._grant_seq
             if h.t_first_chunk is None:
                 h.t_first_chunk = time.monotonic()
-            h.wait_s += time.monotonic() - t0
+            waited = time.monotonic() - t0
+            h.wait_s += waited
             # re-notify after taking the grant: with dispatch_width > 1
             # another waiter may NOW be the _pick() winner for a still-free
             # slot — without this it sleeps until this chunk completes (a
             # lost wakeup that collapses multi-width dispatch to strict
             # alternation)
             self._cond.notify_all()
+        TRACER.note_grant_wait(waited)
         try:
             # chaos seam (ccx_torch.common.faults): an injected grant failure
             # exercises the "engine died mid-wave" path — the finally

@@ -35,6 +35,7 @@ import dataclasses
 import torch
 
 from ccx_torch.common.resources import NUM_RESOURCES, Resource
+from ccx_torch.common.tracing import TRACER
 from ccx_torch.goals import partition_terms as pt
 from ccx_torch.goals import topic_terms as tt
 from ccx_torch.goals.base import GOAL_REGISTRY, GoalConfig
@@ -170,7 +171,10 @@ USAGE_WEIGHTS = (0.3, 0.0, 1.0, 0.0)
 
 
 def usage_weights(device) -> torch.Tensor:
-    return torch.tensor(USAGE_WEIGHTS, dtype=torch.float32, device=device)
+    """``USAGE_WEIGHTS`` on ``device``: on a card a blocking host-to-device
+    copy, a counted host sync."""
+    with TRACER.blocked():
+        return torch.tensor(USAGE_WEIGHTS, dtype=torch.float32, device=device)
 
 
 @dataclasses.dataclass
@@ -245,10 +249,12 @@ def broker_pressure(
 def max_partitions_per_topic(m: TensorClusterModel) -> int:
     """Capacity of a topic's member list: the densest topic's partition
     count, rounded up to a power of two (at least 8)."""
-    topic = m.partition_topic[m.partition_valid].long()
+    with TRACER.blocked():
+        topic = m.partition_topic[m.partition_valid].long()
     if topic.numel() == 0:
         return 1
-    exact = max(int(torch.bincount(topic, minlength=m.num_topics).max()), 1)
+    with TRACER.blocked():
+        exact = max(int(torch.bincount(topic, minlength=m.num_topics).max()), 1)
     return max(1 << (exact - 1).bit_length(), 8)
 
 
@@ -258,7 +264,8 @@ def topic_member_index(m: TensorClusterModel, max_pt: int) -> torch.Tensor:
     T, P = m.num_topics, m.P
     topic = torch.where(m.partition_valid, m.partition_topic, T).long()
     order = torch.argsort(topic, stable=True)
-    counts = torch.bincount(topic, minlength=T + 1)[:T]
+    with TRACER.blocked():
+        counts = torch.bincount(topic, minlength=T + 1)[:T]
     starts = torch.cumsum(counts, 0) - counts
     j = torch.arange(max_pt, device=m.device)
     idx = (starts[:, None] + j[None, :]).clamp(0, P - 1)
@@ -280,7 +287,8 @@ def make_topic_group(m: TensorClusterModel, max_pt: int) -> TopicGroup:
     slots = torch.arange(max_pt, dtype=torch.int32, device=m.device).expand_as(members)
     ok = members >= 0
     member_slot = torch.zeros(m.P, dtype=torch.int32, device=m.device)
-    member_slot[members[ok].long()] = slots[ok]
+    with TRACER.blocked():
+        member_slot[members[ok].long()] = slots[ok]
     return TopicGroup(members=members, member_slot=member_slot)
 
 

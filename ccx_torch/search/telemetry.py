@@ -28,6 +28,8 @@ import os
 
 import torch
 
+from ccx_torch.common.tracing import TRACER
+
 #: row layout past the G goal costs: 3 proposal counters, 3 acceptance
 #: counters, temperature, and the replica-exchange attempt/accept counters
 #: (zero for engines without a ladder)
@@ -150,8 +152,9 @@ def decode(tap, goal_names, chunk_size: int | None = None, budget: int | None = 
     appears whenever a chunk attempted a pair."""
     if tap is None:
         return None
-    buf = tap[0].cpu().numpy()
-    n = int(tap[1])
+    buf = TRACER.numpy(tap[0])
+    with TRACER.blocked():
+        n = int(tap[1])
     if n <= 0:
         return None
     G = len(goal_names)

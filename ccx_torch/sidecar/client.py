@@ -147,12 +147,15 @@ class SidecarClient:
     def put_snapshot(self, model, session: str, generation: int,
                      is_delta: bool = False, base_generation: int | None = None,
                      packed: bytes | None = None,
-                     cluster_id: str | None = None) -> dict:
+                     cluster_id: str | None = None,
+                     request_id: str | None = None) -> dict:
+        """``request_id`` (optional) names the request on the sidecar's
+        spans."""
         req = wire.put_snapshot_request(
             session=session, generation=generation,
             packed=packed if packed is not None else _pack_model(model),
             is_delta=is_delta, base_generation=base_generation,
-            cluster_id=cluster_id,
+            cluster_id=cluster_id, request_id=request_id,
         )
         return wire.decode_response(self._retrying_unary(self._put, req))
 
@@ -162,7 +165,8 @@ class SidecarClient:
                 priority: int | None = None, warm_start: bool = False,
                 base_generation: int | None = None,
                 stream_result: bool | None = None,
-                timings: dict | None = None, **options) -> dict:
+                timings: dict | None = None,
+                request_id: str | None = None, **options) -> dict:
         """``columnar=True`` requests the proposals as one raw-buffer
         arrays blob (``diff_columnar`` schema) instead of per-proposal
         maps — the fast path for B5-scale results; the returned dict then
@@ -181,6 +185,8 @@ class SidecarClient:
         ``goalSummary`` list, reconstructed from the streamed flat-array
         form). ``timings`` (optional dict) receives client-side decode
         seconds and frame counts — the ``bench.py --wire`` split.
+        ``request_id`` (optional) names the request on the sidecar's spans
+        and on the result's span tree (``spanTree.request``).
 
         Transient failures (module docstring) RESTART the whole stream —
         segments from a dead attempt are discarded, never resumed."""
@@ -193,6 +199,7 @@ class SidecarClient:
             cluster_id=cluster_id, priority=priority,
             warm_start=warm_start, base_generation=base_generation,
             stream_result=bool(stream_result and columnar),
+            request_id=request_id,
         )
         last: BaseException | None = None
         for attempt in range(self.retries + 1):

@@ -18,7 +18,10 @@ device.
   ``propose`` runs ``optimize`` as a fleet job
   (``ccx_torch.search.scheduler``) in a worker thread and relays its phase
   starts and chunk heartbeats (through a ``TRACER`` listener) as progress
-  frames; warm Proposes resolve their base from the placement store.
+  frames; warm Proposes resolve their base from the placement store. Each
+  PutSnapshot and Propose is one traced request (``PutSnapshot`` and
+  ``Propose`` spans with their edge spans, one request id across the
+  handler and the worker; ``OptimizerSidecar.propose``).
 * ``make_grpc_server``/``main`` put the methods on gRPC with byte-identity
   serializers (no protoc codegen). ``grpc`` is imported inside them only.
 
@@ -48,7 +51,7 @@ import torch
 
 from ccx_torch.common import compilestats, costmodel, devmem, faults
 from ccx_torch.common.resources import NUM_RESOURCES
-from ccx_torch.common.tracing import TRACER
+from ccx_torch.common.tracing import TRACER, new_request_id
 from ccx_torch.device import ensure_responsive_backend, resolve_device
 from ccx_torch.goals.base import GOAL_REGISTRY, GoalConfig
 from ccx_torch.goals.stack import DEFAULT_GOAL_ORDER
@@ -254,7 +257,8 @@ class SnapshotRegistry:
                 # a zero-copy view of the wire payload: torch wants a
                 # writable buffer to alias
                 dense = dense.copy()
-            dev = torch.from_numpy(dense).to(model.device)
+            with TRACER.blocked():
+                dev = torch.from_numpy(dense).to(model.device)
             if n < Pp:
                 dev = torch.nn.functional.pad(dev, (0, Pp - n))
             reps[k] = dev
@@ -458,45 +462,54 @@ class OptimizerSidecar:
     # ----- PutSnapshot --------------------------------------------------------
 
     def put_snapshot(self, request: bytes) -> bytes:
-        req = wire.unpackb(request)
-        wire.check_version(req)
-        session = req.get("session", "")
-        generation = int(req.get("generation", 0))
-        if "packed" not in req:
-            raise wire.WireError(wire.ERR_MALFORMED, "PutSnapshot request missing 'packed'")
-        arrays = _decode_snapshot(req["packed"], what="packed snapshot")
-        crc = zlib.crc32(req["packed"]) & 0xFFFFFFFF
-        with self._lock:
-            if req.get("is_delta"):
-                base = self.registry.get(session)
-                if base is None:
-                    raise ValueError(f"no base snapshot for session {session!r}")
-                if generation == base[0]:
-                    # the registry is already at this generation: the same
-                    # bytes are a duplicate delivery (ACK, the client retry
-                    # contract); other bytes are a desynced writer
-                    if self._put_crc.get(session) == (generation, crc):
-                        return wire.ack_response(generation)
-                    raise ValueError(
-                        f"delta for session {session!r} reuses current "
-                        f"generation {generation} with different content "
-                        "— writer desynced; re-send a full snapshot"
-                    )
-                base_gen = req.get("base_generation")
-                if base_gen is not None and int(base_gen) != base[0]:
-                    # a delta against the wrong base would build a cluster
-                    # state that never existed
-                    raise ValueError(
-                        f"delta base generation {base_gen} does not match "
-                        f"cached generation {base[0]} for session {session!r}"
-                    )
-                changed = set(arrays) & set(ARRAY_FIELDS)
-                arrays = delta_apply(base[1], arrays)
-                self.registry.put(session, generation, arrays, changed=changed)
-            else:
-                self.registry.put(session, generation, arrays)
-            self._put_crc[session] = (generation, crc)
-        return wire.ack_response(generation)
+        """Store a session's snapshot (full or delta) and ack its
+        generation. The request runs under a ``PutSnapshot`` span with its
+        edge spans ``decode``, ``delta-apply`` and ``registry-put`` (the
+        recorder and listeners see them; the ack carries no tree)."""
+        with TRACER.span("PutSnapshot", kind="rpc", bytes=len(request or b"")):
+            with TRACER.span("decode"):
+                req = wire.unpackb(request)
+                wire.check_version(req)
+                TRACER.set_request(_request_id(req))
+                session = req.get("session", "")
+                generation = int(req.get("generation", 0))
+                if "packed" not in req:
+                    raise wire.WireError(wire.ERR_MALFORMED, "PutSnapshot request missing 'packed'")
+                arrays = _decode_snapshot(req["packed"], what="packed snapshot")
+                crc = zlib.crc32(req["packed"]) & 0xFFFFFFFF
+            with self._lock:
+                changed = None
+                if req.get("is_delta"):
+                    base = self.registry.get(session)
+                    if base is None:
+                        raise ValueError(f"no base snapshot for session {session!r}")
+                    if generation == base[0]:
+                        # the registry is already at this generation: the
+                        # same bytes are a duplicate delivery (ACK, the
+                        # client retry contract); other bytes are a
+                        # desynced writer
+                        if self._put_crc.get(session) == (generation, crc):
+                            return wire.ack_response(generation)
+                        raise ValueError(
+                            f"delta for session {session!r} reuses current "
+                            f"generation {generation} with different content "
+                            "— writer desynced; re-send a full snapshot"
+                        )
+                    base_gen = req.get("base_generation")
+                    if base_gen is not None and int(base_gen) != base[0]:
+                        # a delta against the wrong base would build a
+                        # cluster state that never existed
+                        raise ValueError(
+                            f"delta base generation {base_gen} does not match "
+                            f"cached generation {base[0]} for session {session!r}"
+                        )
+                    changed = set(arrays) & set(ARRAY_FIELDS)
+                    with TRACER.span("delta-apply"):
+                        arrays = delta_apply(base[1], arrays)
+                with TRACER.span("registry-put"):
+                    self.registry.put(session, generation, arrays, changed=changed)
+                self._put_crc[session] = (generation, crc)
+            return wire.ack_response(generation)
 
     # ----- Propose ------------------------------------------------------------
 
@@ -507,57 +520,81 @@ class OptimizerSidecar:
         ``cancel`` is the transport's disconnect signal: the optimize
         worker runs as a fleet job holding the event and unwinds with
         ``JobCancelled`` at its next chunk-boundary grant. A consumer that
-        stops iterating this generator cancels the same way."""
+        stops iterating this generator cancels the same way.
+
+        The request runs under a ``Propose`` span whose edge spans time the
+        sidecar's own work: ``decode``, ``registry`` (lookup, delta apply,
+        model build), ``warm-base`` (the placement store's lookup),
+        ``bank``, ``assembly`` and ``pack``. The worker's ``optimize`` tree
+        is linked to it by the request id and the parent span id, and the
+        result's ``spanTree`` gains a ``request`` entry: the id and the
+        edge spans closed before the result frame is packed.
+        ``wireSeconds`` reads ``assembly``, ``pack`` and ``bank`` from
+        them."""
         if cancel is None:
             cancel = threading.Event()
-        req = wire.unpackb(request)
-        wire.check_version(req)
+        with TRACER.span("Propose", kind="rpc", bytes=len(request or b"")) as root:
+            yield from self._propose(request, cancel, root)
+
+    def _propose(self, request: bytes, cancel: threading.Event, root):
+        #: the closed edge spans, in order, for the result's request entry
+        edges = []
         yield wire.progress_frame("Decoding snapshot")
+        with TRACER.span("decode") as span:
+            req = wire.unpackb(request)
+            wire.check_version(req)
+            TRACER.set_request(_request_id(req))
+            warm_req = bool(req.get(wire.FIELD_WARM_START)) and incr.env_enabled()
+            # the fleet job: the cluster id names it on the scheduler, and
+            # the priority also prices every device resident this RPC
+            # touches
+            cluster = str(req.get("cluster_id") or req.get("session") or "anon")
+            priority = int(req.get("priority") or 0)
+            arrays = delta_arrays = None
+            if req.get("snapshot") is not None:
+                arrays = _decode_snapshot(req["snapshot"], what="snapshot")
+            elif req.get("delta") is not None:
+                delta_arrays = _decode_snapshot(req["delta"], what="delta")
+            goals = tuple(req.get("goals") or ()) or DEFAULT_GOAL_ORDER
+            unknown = [g for g in goals if g not in GOAL_REGISTRY]
+            if unknown:
+                raise ValueError(f"unknown goals: {unknown}")
+            if "StructuralFeasibility" not in goals:
+                goals = ("StructuralFeasibility",) + tuple(goals)
+            opts = options_from_wire(req.get("options") or {}, warm_req)
+        edges.append(span)
         model = None
         session = None
         cur_gen = None
-        warm_req = bool(req.get(wire.FIELD_WARM_START)) and incr.env_enabled()
-        # the fleet job: the cluster id names it on the scheduler, and the
-        # priority also prices every device resident this RPC touches
-        cluster = str(req.get("cluster_id") or req.get("session") or "anon")
-        priority = int(req.get("priority") or 0)
-        if req.get("snapshot") is not None:
-            arrays = _decode_snapshot(req["snapshot"], what="snapshot")
-        else:
-            session = req.get("session", "")
-            # read, validate, apply and store under one lock, so concurrent
-            # deltas for a session cannot drop updates
-            with self._lock:
-                entry = self.registry.get(session)
-                if entry is None:
-                    raise ValueError(f"no snapshot for session {session!r}")
-                if req.get("delta") is not None:
-                    base_gen = req.get("base_generation")
-                    if base_gen is not None and int(base_gen) != entry[0]:
-                        raise ValueError(
-                            f"delta base generation {base_gen} does not "
-                            f"match cached generation {entry[0]} for "
-                            f"session {session!r}"
-                        )
-                    delta_arrays = _decode_snapshot(req["delta"], what="delta")
-                    changed = set(delta_arrays) & set(ARRAY_FIELDS)
-                    arrays = delta_apply(entry[1], delta_arrays)
-                    cur_gen = int(req.get("generation", entry[0] + 1))
-                    self.registry.put(session, cur_gen, arrays, changed=changed)
-                else:
-                    arrays = entry[1]
-                    cur_gen = entry[0]
-            model = self.registry.model(session, priority=priority, job=cluster)
-        if model is None:
-            model = arrays_to_model(arrays, device=self.device)
+        with TRACER.span("registry") as span:
+            if arrays is None:
+                session = req.get("session", "")
+                # read, validate, apply and store under one lock, so
+                # concurrent deltas for a session cannot drop updates
+                with self._lock:
+                    entry = self.registry.get(session)
+                    if entry is None:
+                        raise ValueError(f"no snapshot for session {session!r}")
+                    if delta_arrays is not None:
+                        base_gen = req.get("base_generation")
+                        if base_gen is not None and int(base_gen) != entry[0]:
+                            raise ValueError(
+                                f"delta base generation {base_gen} does not "
+                                f"match cached generation {entry[0]} for "
+                                f"session {session!r}"
+                            )
+                        changed = set(delta_arrays) & set(ARRAY_FIELDS)
+                        arrays = delta_apply(entry[1], delta_arrays)
+                        cur_gen = int(req.get("generation", entry[0] + 1))
+                        self.registry.put(session, cur_gen, arrays, changed=changed)
+                    else:
+                        arrays = entry[1]
+                        cur_gen = entry[0]
+                model = self.registry.model(session, priority=priority, job=cluster)
+            if model is None:
+                model = arrays_to_model(arrays, device=self.device)
+        edges.append(span)
 
-        goals = tuple(req.get("goals") or ()) or DEFAULT_GOAL_ORDER
-        unknown = [g for g in goals if g not in GOAL_REGISTRY]
-        if unknown:
-            raise ValueError(f"unknown goals: {unknown}")
-        if "StructuralFeasibility" not in goals:
-            goals = ("StructuralFeasibility",) + tuple(goals)
-        opts = options_from_wire(req.get("options") or {}, warm_req)
         # the warm base: (session, base_generation) in the placement store;
         # a missing or mismatched base cold-starts with the reason on the
         # result, never a failure
@@ -567,29 +604,34 @@ class OptimizerSidecar:
             if session is None:
                 cold_reason = "warm_start requires a session"
             else:
-                want_gen = req.get("base_generation")
-                warm = incr.STORE.get(session, want_gen, priority=priority, job=cluster)
-                if warm is None:
-                    have = incr.STORE.generation(session)
-                    cold_reason = (
-                        f"no warm placement for session {session!r} at "
-                        f"base_generation {want_gen} (store has "
-                        f"{have if have is not None else 'none'})"
-                    )
+                with TRACER.span("warm-base") as span:
+                    want_gen = req.get("base_generation")
+                    warm = incr.STORE.get(session, want_gen, priority=priority, job=cluster)
+                    if warm is None:
+                        have = incr.STORE.generation(session)
+                        cold_reason = (
+                            f"no warm placement for session {session!r} at "
+                            f"base_generation {want_gen} (store has "
+                            f"{have if have is not None else 'none'})"
+                        )
+                edges.append(span)
         yield wire.progress_frame(f"Optimizing {model.P}x{model.B} over {len(goals)} goals")
 
         # optimize runs in a worker thread so its phase starts and chunk
-        # heartbeats can stream through this generator
+        # heartbeats can stream through this generator; its root span is
+        # linked to this request explicitly
         q: queue.Queue = queue.Queue()
         box: dict = {}
+        link = TRACER.link()
 
         def _run():
             try:
-                box["res"] = optimize(
-                    model, self.goal_config, goals, opts, warm_start=warm,
-                    progress_cb=lambda p: q.put(("phase", p)),
-                    job=(cluster, priority), cancel=cancel,
-                )
+                with TRACER.adopt(link):
+                    box["res"] = optimize(
+                        model, self.goal_config, goals, opts, warm_start=warm,
+                        progress_cb=lambda p: q.put(("phase", p)),
+                        job=(cluster, priority), cancel=cancel,
+                    )
             except BaseException as e:  # re-raised below, at the RPC edge
                 box["err"] = e
             finally:
@@ -641,73 +683,81 @@ class OptimizerSidecar:
         res = box["res"]
         yield wire.progress_frame("Diff + verification done")
         # bank this run's placement as the session's next warm base
-        bank_s = 0.0
+        bank = None
         if session is not None and cur_gen is not None and incr.env_enabled() and res.verification.ok:
-            t_bank = time.monotonic()
-            try:
-                incr.remember(
-                    session, cur_gen, res.model, self.goal_config,
-                    pressure=res.warm_pressure, priority=priority, job=cluster,
-                )
-            except faults.InjectedFault:
-                # the injected ``placement.bank`` fault: the bank-last store
-                # kept the previous base, so the next warm Propose resolves
-                # it or cold-starts; this verified result still ships
-                log.warning(
-                    "warm-base banking failed for session %r gen %s — the "
-                    "next warm Propose will cold-start", session, cur_gen, exc_info=True,
-                )
-            bank_s = time.monotonic() - t_bank
+            with TRACER.span("bank") as bank:
+                try:
+                    incr.remember(
+                        session, cur_gen, res.model, self.goal_config,
+                        pressure=res.warm_pressure, priority=priority, job=cluster,
+                    )
+                except faults.InjectedFault:
+                    # the injected ``placement.bank`` fault: the bank-last
+                    # store kept the previous base, so the next warm
+                    # Propose resolves it or cold-starts; this verified
+                    # result still ships
+                    log.warning(
+                        "warm-base banking failed for session %r gen %s — the "
+                        "next warm Propose will cold-start", session, cur_gen, exc_info=True,
+                    )
+            edges.append(bank)
         columnar = bool(req.get("columnar_proposals"))
         stream = columnar and bool(req.get(wire.FIELD_STREAM_RESULT))
         # warm results omit the ClusterModelStats blocks (the minimal-diff
         # contract of a steady-state window)
         warm_applied = bool(res.incremental is not None and res.incremental.get("warmStart"))
-        if session is not None and cur_gen is not None and not warm_applied:
-            # the input-side stats are immutable per (session, generation)
-            with self._lock:
-                memo = self._input_stats.get(session)
-            if memo is not None and memo[0] == cur_gen:
-                res._stats_before = memo[1]
-                self.stats_memo_hits += 1
-        t_asm = time.monotonic()
-        result = res.to_json(
-            include_proposals=not columnar, include_stats=not warm_applied,
-            include_goal_summary=not stream,
-        )
-        asm_s = time.monotonic() - t_asm
-        if session is not None and cur_gen is not None and not warm_applied and res.stats_before is not None:
-            with self._lock:
-                self._input_stats[session] = (cur_gen, res.stats_before)
-        if warm_req and cold_reason is not None and "incremental" not in result:
-            result["incremental"] = {"warmStart": False, "coldStart": True, "reason": cold_reason}
+        with TRACER.span("assembly") as asm:
+            if session is not None and cur_gen is not None and not warm_applied:
+                # the input-side stats are immutable per (session, generation)
+                with self._lock:
+                    memo = self._input_stats.get(session)
+                if memo is not None and memo[0] == cur_gen:
+                    res._stats_before = memo[1]
+                    self.stats_memo_hits += 1
+            result = res.to_json(
+                include_proposals=not columnar, include_stats=not warm_applied,
+                include_goal_summary=not stream,
+            )
+            if (session is not None and cur_gen is not None and not warm_applied
+                    and res.stats_before is not None):
+                with self._lock:
+                    self._input_stats[session] = (cur_gen, res.stats_before)
+            if warm_req and cold_reason is not None and "incremental" not in result:
+                result["incremental"] = {"warmStart": False, "coldStart": True,
+                                         "reason": cold_reason}
+        edges.append(asm)
         if not columnar:
+            _attach_request(result, root, edges)
             yield wire.result_frame(result)
             return
         # the optimizer's columnar diff is the result
         result["numProposals"] = res.diff.n
-        t_pack = time.monotonic()
-        blob = pack_arrays(res.diff.cols)
-        pack_s = time.monotonic() - t_pack
-        # a flipped byte inside a bin payload decodes cleanly: the crc is
-        # the client's only detector
-        result["proposalsColumnarCrc32"] = zlib.crc32(blob) & 0xFFFFFFFF
-        if res.plan is not None and res.plan.n_waves > 0:
-            plan_blob = pack_arrays(res.plan.wire_cols())
-            result[wire.FIELD_PLAN_COLUMNAR] = plan_blob
-            result[wire.FIELD_PLAN_COLUMNAR_CRC32] = zlib.crc32(plan_blob) & 0xFFFFFFFF
+        with TRACER.span("pack") as pack:
+            blob = pack_arrays(res.diff.cols)
+            # a flipped byte inside a bin payload decodes cleanly: the crc
+            # is the client's only detector
+            result["proposalsColumnarCrc32"] = zlib.crc32(blob) & 0xFFFFFFFF
+            if res.plan is not None and res.plan.n_waves > 0:
+                plan_blob = pack_arrays(res.plan.wire_cols())
+                result[wire.FIELD_PLAN_COLUMNAR] = plan_blob
+                result[wire.FIELD_PLAN_COLUMNAR_CRC32] = zlib.crc32(plan_blob) & 0xFFFFFFFF
+            if stream:
+                # streamed: the blob rides segment frames; the terminal
+                # frame has the scalar blocks and the goal summary as flat
+                # typed arrays
+                gs_blob = pack_arrays(res.goal_summary_columnar())
+                result["goalSummaryColumnar"] = gs_blob
+                result["goalSummaryColumnarCrc32"] = zlib.crc32(gs_blob) & 0xFFFFFFFF
+        edges.append(pack)
         result["wireSeconds"] = {
-            "assembly": round(asm_s, 6), "pack": round(pack_s, 6), "bank": round(bank_s, 6),
+            "assembly": round(asm.wall_s, 6), "pack": round(pack.wall_s, 6),
+            "bank": round(bank.wall_s, 6) if bank is not None else 0.0,
         }
+        _attach_request(result, root, edges)
         if not stream:
             result["proposalsColumnar"] = blob
             yield wire.result_frame(result)
             return
-        # streamed: the blob rides segment frames; the terminal frame has
-        # the scalar blocks and the goal summary as flat typed arrays
-        gs_blob = pack_arrays(res.goal_summary_columnar())
-        result["goalSummaryColumnar"] = gs_blob
-        result["goalSummaryColumnarCrc32"] = zlib.crc32(gs_blob) & 0xFFFFFFFF
         seg_bytes = max(int(RESULT_SEGMENT_BYTES), 1)
         total = max((len(blob) + seg_bytes - 1) // seg_bytes, 1)
         result["proposalsColumnarSegments"] = total
@@ -727,6 +777,20 @@ class OptimizerSidecar:
                 device=torch.cuda.get_device_name(self.device),
             )
         return wire.pong_response(VERSION, self.device.type, 1)
+
+
+def _request_id(req: dict) -> str:
+    """The request's id: the client's ``request_id``, or a new one."""
+    rid = req.get(wire.FIELD_REQUEST_ID)
+    return str(rid) if rid else new_request_id()
+
+
+def _attach_request(result: dict, root, edges: list) -> None:
+    """Write the request entry into the result's span tree: the request's
+    id and its closed edge spans, in order."""
+    tree = result.get("spanTree")
+    if tree is not None:
+        tree["request"] = {"id": root.request_id, "spans": [s.to_json() for s in edges]}
 
 
 def _decode_snapshot(packed: bytes, what: str) -> dict:
@@ -764,6 +828,9 @@ def make_grpc_server(sidecar: OptimizerSidecar | None = None,
     def unary(fn, rpc_name):
         def handler(request: bytes, context):
             try:
+                if rpc_name is None:
+                    # the method opens its own request span
+                    return fn(request)
                 with TRACER.span(rpc_name, kind="rpc", bytes=len(request or b"")):
                     return fn(request)
             except Exception as e:  # noqa: BLE001 — RPC boundary
@@ -783,13 +850,13 @@ def make_grpc_server(sidecar: OptimizerSidecar | None = None,
 
         context.add_callback(_on_rpc_done)
         try:
-            with TRACER.span("Propose", kind="rpc", bytes=len(request or b"")):
-                for update in sidecar.propose(request, cancel=cancel):
-                    buf = wire.pack_frame(update)
-                    if faults.FAULTS.armed:
-                        # chaos seam: per-frame transport faults
-                        buf = faults.FAULTS.hit("rpc.frame", buf)
-                    yield buf
+            # the request span is the sidecar method's own
+            for update in sidecar.propose(request, cancel=cancel):
+                buf = wire.pack_frame(update)
+                if faults.FAULTS.armed:
+                    # chaos seam: per-frame transport faults
+                    buf = faults.FAULTS.hit("rpc.frame", buf)
+                yield buf
         except JobCancelled as e:
             log.info("propose cancelled: %s", e)
             yield wire.pack_frame(wire.error_frame(str(e), wire.ERR_CANCELLED))
@@ -809,7 +876,7 @@ def make_grpc_server(sidecar: OptimizerSidecar | None = None,
             propose_stream, request_deserializer=_identity, response_serializer=_identity,
         ),
         "PutSnapshot": grpc.unary_unary_rpc_method_handler(
-            unary(sidecar.put_snapshot, "PutSnapshot"),
+            unary(sidecar.put_snapshot, None),
             request_deserializer=_identity, response_serializer=_identity,
         ),
         "Ping": grpc.unary_unary_rpc_method_handler(

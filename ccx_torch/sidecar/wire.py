@@ -60,6 +60,11 @@ FIELD_STREAM_RESULT = "stream_result"
 #: segment-frame field: the 0-based sequence number of this segment
 #: (``of`` carries the total, ``data`` the raw blob bytes)
 FIELD_RESULT_SEGMENT = "resultSegment"
+#: request tracing (additive, the port's client only): an id the client
+#: gives a PutSnapshot or Propose; every span the sidecar opens for the
+#: request carries it (``ccx_torch.common.tracing``). Absent ⇒ the sidecar
+#: makes one; the bytes of a request without it are unchanged.
+FIELD_REQUEST_ID = "request_id"
 
 # ----- structured error codes ----------------------------------------------
 
@@ -245,7 +250,8 @@ def ping_request() -> bytes:
 def put_snapshot_request(session: str, generation: int, packed: bytes,
                          is_delta: bool = False,
                          base_generation: int | None = None,
-                         cluster_id: str | None = None) -> bytes:
+                         cluster_id: str | None = None,
+                         request_id: str | None = None) -> bytes:
     req: dict = {
         "session": session,
         "generation": int(generation),
@@ -260,6 +266,8 @@ def put_snapshot_request(session: str, generation: int, packed: bytes,
         # Absent ⇒ the session id doubles as the cluster id (pre-fleet
         # peers unchanged, fixtures byte-stable).
         req["cluster_id"] = str(cluster_id)
+    if request_id is not None:
+        req[FIELD_REQUEST_ID] = str(request_id)
     return packb(_stamped(req))
 
 
@@ -272,7 +280,8 @@ def propose_request(goals: Iterable[str] = (), options: dict | None = None,
                     cluster_id: str | None = None,
                     priority: int | None = None,
                     warm_start: bool = False,
-                    stream_result: bool = False) -> bytes:
+                    stream_result: bool = False,
+                    request_id: str | None = None) -> bytes:
     req: dict = {"goals": list(goals), "options": dict(options or {})}
     if warm_start:
         # incremental re-optimization (additive): warm-start
@@ -304,6 +313,8 @@ def propose_request(goals: Iterable[str] = (), options: dict | None = None,
         # fix-offline-replicas preempts a queued dryrun at the next chunk
         # boundary); absent ⇒ 0
         req["priority"] = int(priority)
+    if request_id is not None:
+        req[FIELD_REQUEST_ID] = str(request_id)
     return packb(_stamped(req))
 
 

@@ -13,6 +13,7 @@ import dataclasses
 import numpy as np
 
 from ccx_torch.common.resources import Resource
+from ccx_torch.common.tracing import TRACER
 from ccx_torch.feasibility import feasibility_report
 from ccx_torch.goals.base import GOAL_REGISTRY, GoalConfig
 from ccx_torch.goals.stack import DEFAULT_GOAL_ORDER, StackResult, evaluate_stack
@@ -33,7 +34,8 @@ class Verification:
 
 
 def _np(t) -> np.ndarray:
-    return t.cpu().numpy()
+    """A device tensor on the host: one counted host read."""
+    return TRACER.numpy(t)
 
 
 def verify_model_consistency(m: TensorClusterModel) -> list[str]:
@@ -168,8 +170,12 @@ def verify_optimization(
             else:
                 failures.append(f"hard goal {n}: {v1[n][0]:.0f} violations remain")
 
-    hard_feasible_start = float(s0.hard_violations) == 0
-    soft0, soft1 = float(s0.soft_scalar), float(s1.soft_scalar)
+    with TRACER.blocked():
+        hard_feasible_start = float(s0.hard_violations) == 0
+    with TRACER.blocked():
+        soft0 = float(s0.soft_scalar)
+    with TRACER.blocked():
+        soft1 = float(s1.soft_scalar)
     # only from a hard-feasible start: repairing hard violations may
     # legitimately land load on scored brokers
     if hard_feasible_start and soft1 > soft0 * (1.0 + 1e-4) + 1e-6:

@@ -480,6 +480,74 @@ def test_streamed_segments_reassemble_and_the_memo_hits(session_sidecar, monkeyp
     assert gs["goal"] == [g for g in ("StructuralFeasibility",) + GOALS]
 
 
+def test_a_propose_is_one_request_across_the_handler_and_the_worker(session_sidecar):
+    from ccx_torch.common.tracing import TRACER
+
+    sc = session_sidecar
+    seen = []
+    TRACER.add_listener(seen.append)
+    try:
+        frames = list(sc.propose(wire.propose_request(GOALS, LEAN, session="sess", columnar=True,
+                                                      stream_result=True, request_id="rq-7")))
+    finally:
+        TRACER.remove_listener(seen.append)
+    res = frames[-1]["result"]
+    tree = res["spanTree"]
+    # the worker's root keeps its path; the link is by id
+    assert tree["name"] == "optimize" and tree["requestId"] == "rq-7"
+    mine = [r for r in seen if r.get("spanId") is not None]
+    propose = next(r for r in mine if r["ev"] == "end" and r["span"] == "Propose")
+    assert propose["requestId"] == "rq-7" and tree["parentId"] == propose["spanId"]
+    assert any(r["ev"] == "start" and r["span"] == "optimize" and r["requestId"] == "rq-7"
+               and r["parentId"] == propose["spanId"] for r in mine)
+    assert {r["span"] for r in mine if r["ev"] == "end" and r.get("requestId") == "rq-7"} >= {
+        "Propose", "Propose/decode", "Propose/registry", "optimize", "optimize/anneal"}
+    # the request's edge spans ride the tree, closed before the result frame
+    req = tree["request"]
+    assert req["id"] == "rq-7"
+    assert [e["name"] for e in req["spans"]] == ["decode", "registry", "bank", "assembly", "pack"]
+    assert all(e["requestId"] == "rq-7" and e["parentId"] == propose["spanId"]
+               and e["startNs"] <= e["endNs"] for e in req["spans"])
+    walls = {e["name"]: e["wallSeconds"] for e in req["spans"]}
+    assert set(res["wireSeconds"]) == {"assembly", "pack", "bank"}
+    for key, val in res["wireSeconds"].items():
+        assert val == pytest.approx(walls[key], abs=1e-4)
+    # no new result key: the request travels inside spanTree; a request
+    # without an id gets one of the sidecar's
+    plain = list(sc.propose(wire.propose_request(GOALS, LEAN, session="sess", columnar=True,
+                                                 stream_result=True)))[-1]["result"]
+    assert set(plain) == set(res)
+    assert plain["spanTree"]["request"]["id"] not in (None, "rq-7")
+    mono = list(sc.propose(wire.propose_request(GOALS, LEAN, session="sess")))[-1]["result"]
+    assert [e["name"] for e in mono["spanTree"]["request"]["spans"]] == [
+        "decode", "registry", "bank", "assembly"]
+
+
+def test_put_snapshot_edge_spans_reach_the_listeners():
+    from ccx_torch.common.tracing import TRACER
+
+    m = random_cluster(SMALL, device="cpu")
+    sc = OptimizerSidecar(device="cpu")
+    seen = []
+    TRACER.add_listener(seen.append)
+    try:
+        sc.put_snapshot(wire.put_snapshot_request("put-spans", 1, tsnap.to_msgpack(m),
+                                                  request_id="put-1"))
+        base = tsnap.model_to_arrays(m)
+        delta = tsnap.delta_encode(base, {**base, "leader_load": base["leader_load"] * 1.5})
+        sc.put_snapshot(wire.put_snapshot_request("put-spans", 2, tsnap.pack_arrays(delta),
+                                                  is_delta=True, base_generation=1))
+    finally:
+        TRACER.remove_listener(seen.append)
+    ends = [(r["span"], r.get("requestId")) for r in seen if r["ev"] == "end"]
+    assert ends[:3] == [("PutSnapshot/decode", "put-1"), ("PutSnapshot/registry-put", "put-1"),
+                        ("PutSnapshot", "put-1")]
+    rid = ends[-1][1]
+    assert rid not in (None, "put-1")
+    assert ends[3:] == [("PutSnapshot/decode", rid), ("PutSnapshot/delta-apply", rid),
+                        ("PutSnapshot/registry-put", rid), ("PutSnapshot", rid)]
+
+
 def test_abandoned_propose_cancels_its_worker():
     m = random_cluster(SMALL, device="cpu")
     sc = OptimizerSidecar(device="cpu")

@@ -246,3 +246,221 @@ def test_optimize_span_tree_and_recording_name_every_phase(tmp_path):
     walls = tracing.summarize(path)["spanWalls"]
     assert {f"optimize/{p}" for p in phases} | {"optimize"} == set(walls)
     assert res.to_json()["spanTree"] == tree
+
+
+# ----- ids, the clock, aggregates, host syncs, queue waits ----------------------------
+
+
+def test_sync_helper_counts_self_and_total_through_nested_spans():
+    with TRACER.span("outer") as outer:
+        with TRACER.blocked():
+            time.sleep(0.002)
+        with TRACER.span("inner"):
+            for _ in range(3):
+                with TRACER.blocked():
+                    torch.ones(2).tolist()
+            with TRACER.blocked():
+                time.sleep(0.003)
+    tree = outer.to_json()
+    (inner,) = tree["children"]
+    assert inner["syncs"] == {"self": 4, "total": 4}
+    assert tree["syncs"] == {"self": 1, "total": 5}
+    wait = tree["syncWaitSeconds"]
+    assert inner["syncWaitSeconds"]["self"] >= 0.003 and wait["self"] >= 0.002
+    assert wait["total"] == pytest.approx(wait["self"] + inner["syncWaitSeconds"]["total"],
+                                          abs=2e-6)
+    assert not TRACER.in_sync()
+    with TRACER.blocked():
+        assert TRACER.in_sync()
+    # a span with no sync renders no counter
+    with TRACER.span("quiet") as quiet:
+        pass
+    assert "syncs" not in quiet.to_json() and "syncWaitSeconds" not in quiet.to_json()
+
+
+def test_an_aggregate_entered_250_times_is_one_node_and_sends_no_record(tmp_path):
+    seen = []
+    TRACER.add_listener(seen.append)
+    try:
+        with TRACER.span("anneal", kind="phase") as phase:
+            for _ in range(250):
+                with TRACER.step("sa-step"):
+                    with TRACER.blocked():
+                        pass
+                    with TRACER.span("nested"):  # rolls up as well
+                        pass
+    finally:
+        TRACER.remove_listener(seen.append)
+    assert [(r["ev"], r["span"]) for r in seen] == [("start", "anneal"), ("end", "anneal")]
+    (step,) = phase.to_json()["children"]
+    assert step["name"] == "sa-step" and step["calls"] == 250 and "kind" not in step
+    assert step["syncs"] == {"self": 250, "total": 250}
+    (nested,) = step["children"]
+    assert nested["calls"] == 250 and "costModel" not in nested
+    assert step["parentId"] == phase.span_id
+    assert step["startNs"] <= nested["startNs"] <= nested["endNs"] <= step["endNs"]
+    assert 0 < step["wallSeconds"] <= phase.wall_s + 1e-4
+    # armed: one file line per entry names the step, listeners still see none
+    path = str(tmp_path / "steps.jsonl")
+    TRACER.arm(path)
+    with TRACER.span("anneal", kind="phase"):
+        for _ in range(3):
+            with TRACER.step("sa-step"):
+                pass
+    TRACER.disarm()
+    recs = [json.loads(ln) for ln in open(path)]
+    steps = [r for r in recs if r["ev"] == "step"]
+    assert [r["call"] for r in steps] == [1, 2, 3] and steps[0]["span"] == "anneal/sa-step"
+    assert tracing.summarize(path)["spanWalls"] == {"anneal": recs[-1]["wall_s"]}
+    # outside any span a step does nothing
+    with TRACER.step("orphan") as node:
+        assert node is None
+
+
+def test_stamps_nest_and_name_the_profilers_clock():
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with TRACER.span("outer", kind="phase") as outer:
+            with TRACER.span("inner"):
+                torch.ones(8).add_(1)
+            for _ in range(2):
+                with TRACER.step("it"):
+                    pass
+    tree = outer.to_json()
+
+    def walk(node):
+        for c in node.get("children", ()):
+            assert node["startNs"] <= c["startNs"] <= c["endNs"] <= node["endNs"]
+            assert c["parentId"] == node["spanId"]
+            walk(c)
+
+    assert tree["startNs"] <= tree["endNs"]
+    walk(tree)
+    events = {e.name(): e for e in prof.profiler.kineto_results.events()}
+    # the ranges of the spans that are not aggregates, on the spans' clock
+    for node in (tree, tree["children"][0]):
+        ev = events["ccx:" + node["name"]]
+        assert node["startNs"] <= ev.start_ns() <= ev.start_ns() + ev.duration_ns() <= node["endNs"]
+    assert "ccx:it" not in events
+    # no profiler recording: no range is opened
+    with TRACER.span("quiet") as quiet:
+        assert quiet.rf is None
+
+
+def test_a_worker_adopts_the_request_and_its_parent_explicitly():
+    out = {}
+    with TRACER.span("Propose", kind="rpc", request_id="req-1") as root:
+        with TRACER.span("decode") as decode:
+            pass
+        link = TRACER.link()
+
+        def work():
+            with TRACER.adopt(link):
+                with TRACER.span("optimize", kind="op") as s:
+                    with TRACER.span("anneal"):
+                        pass
+            out["tree"] = s.to_json()
+            with TRACER.span("after") as later:  # outside adopt: unlinked
+                pass
+            out["later"] = later.to_json()
+
+        t = threading.Thread(target=work)
+        t.start()
+        t.join(timeout=30)
+    assert decode.request_id == "req-1" and link == ("req-1", root.span_id)
+    tree = out["tree"]
+    assert tree["name"] == "optimize" and tree["requestId"] == "req-1"
+    assert tree["parentId"] == root.span_id
+    assert tree["children"][0]["requestId"] == "req-1"
+    assert "requestId" not in out["later"] and "parentId" not in out["later"]
+    # an id that arrives inside the payload names the open spans
+    with TRACER.span("PutSnapshot", kind="rpc") as put:
+        with TRACER.span("decode") as d:
+            TRACER.set_request("late")
+        with TRACER.span("registry-put") as r:
+            pass
+    assert put.request_id == d.request_id == r.request_id == "late"
+
+
+def test_grant_wait_is_counted_when_another_job_holds_the_grant():
+    from ccx_torch.search.scheduler import ChunkScheduler
+
+    def release_once(s, queued, release):
+        # the release comes 0.05 s after the second job is seen queued
+        deadline = time.monotonic() + 10
+        while not queued(s) and time.monotonic() < deadline:
+            time.sleep(0.001)
+        time.sleep(0.05)
+        release.set()
+
+    s = ChunkScheduler(dispatch_width=1)
+    held, release = threading.Event(), threading.Event()
+
+    def holder():
+        with s.job("holder", 0) as h:
+            with s.chunk(h):
+                held.set()
+                release.wait(10)
+
+    ths = [threading.Thread(target=holder),
+           threading.Thread(target=release_once,
+                            args=(s, lambda s: any(j.waiting for j in s._jobs), release))]
+    ths[0].start()
+    assert held.wait(10)
+    ths[1].start()
+    with TRACER.span("anneal", kind="phase") as phase:
+        with s.job("waiter", 0) as h:
+            with s.chunk(h):
+                pass
+    for t in ths:
+        t.join(timeout=10)
+    assert not any(t.is_alive() for t in ths)
+    grant = phase.to_json()["grantWaitSeconds"]
+    assert grant["self"] >= 0.05 and grant["total"] == grant["self"]
+    # the admission wait under a residency cap is the handle's, for the
+    # optimize root
+    capped = ChunkScheduler(max_concurrent=1)
+    held.clear()
+    release.clear()
+
+    def resident():
+        with capped.job("resident", 0):
+            held.set()
+            release.wait(10)
+
+    ths = [threading.Thread(target=resident),
+           threading.Thread(target=release_once,
+                            args=(capped, lambda s: any(not j.resident for j in s._jobs),
+                                  release))]
+    ths[0].start()
+    assert held.wait(10)
+    ths[1].start()
+    with capped.job("queued", 0) as h:
+        assert h.admit_wait_s >= 0.05
+    for t in ths:
+        t.join(timeout=10)
+    assert not any(t.is_alive() for t in ths)
+
+
+def test_optimize_tree_carries_steps_syncs_and_nested_stamps():
+    m = random_cluster(RandomClusterSpec(n_brokers=12, n_racks=3, n_topics=4, n_partitions=160,
+                                         seed=4), device="cpu")
+    opts = OptimizeOptions(
+        anneal=AnnealOptions(n_chains=4, n_steps=40, moves_per_step=2, seed=1, chunk_steps=40),
+        polish=GreedyOptions(n_candidates=32, max_iters=16, patience=4, chunk_iters=8),
+        run_cold_greedy=False, topic_rebalance_rounds=0,
+    )
+    tree = optimize(m, GoalConfig(), opts=opts).span_tree
+    phases = {c["name"]: c for c in tree["children"]}
+    (step,) = [c for c in phases["anneal"].get("children", ()) if c["name"] == "sa-step"]
+    assert step["calls"] == 40 and "kind" not in step
+    iters = [c for c in phases["polish"]["children"] if c["name"] == "polish-iter"]
+    assert len(iters) == 1 and 1 <= iters[0]["calls"] <= 16
+    # the anneal reads its winner back (and the descents their stop flags)
+    assert phases["anneal"]["syncs"]["total"] >= 1 and phases["polish"]["syncs"]["total"] >= 1
+    assert tree["syncs"]["total"] == tree["syncs"]["self"] + sum(
+        c.get("syncs", {}).get("total", 0) for c in tree["children"])
+    for c in tree["children"]:
+        assert tree["startNs"] <= c["startNs"] <= c["endNs"] <= tree["endNs"]
+        assert c["parentId"] == tree["spanId"]
