@@ -608,6 +608,17 @@ class Tracer:
         if st:
             st[-1].grant_ns += int(seconds * 1e9)
 
+    def add_counts(self, **counts) -> None:
+        """Add ``counts`` to the innermost open span's attrs, summed with
+        what earlier calls left there (a phase that runs one loop several
+        times reads the totals). Outside any span it does nothing."""
+        st = getattr(self._tl, "stack", None)
+        if st:
+            attrs = st[-1].attrs
+            for key, v in counts.items():
+                total = attrs.get(key, 0) + v
+                attrs[key] = round(total, 6) if isinstance(total, float) else total
+
     # ----- requests across threads ----------------------------------------------
 
     def link(self) -> tuple[str | None, int] | None:

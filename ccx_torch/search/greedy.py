@@ -29,14 +29,25 @@ is a device flag that makes every later iteration inert. With
 chunk writes one convergence-tap row; ``chunk_iters=0`` runs one loop that
 reads the flag every iteration. Inert iterations change nothing, so both
 give the same result. Within a chunk the host also looks at the flag without
-waiting (``_poll_stop``) and stops queueing iterations once it sees it set.
+waiting (``_poll_stop``) and stops queueing iterations once it sees it set;
+it never queues one past the budget.
 Each iteration is one aggregate span (``<label>-iter``, ``TRACER.step``),
 and each read of device data a counted host sync (``TRACER.blocked``).
+
+On a card a run's iterations after the first are replays of one CUDA
+graph: the first runs eagerly (its caches and shapes warm), the second is
+captured (``_iteration_graph``) and every later one replays it, the draws
+advancing the run's Philox stream as eager launches would, so the result
+is the eager one bit for bit. The stop read, the polls, the taps and the
+heartbeats stay on the host, outside the graph. The run's phase span counts
+``graphCaptures``, ``graphReplays`` and ``graphCaptureSeconds``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
+import time
 
 import torch
 
@@ -379,12 +390,92 @@ def _kind_counts(ss: SearchState) -> tuple[tuple, tuple]:
     return prop, acc
 
 
-def _drive_descent(iteration, ss: SearchState, goal_names, opts, dev, label: str):
+#: retired descent graphs by card index, each with its capture stream and
+#: the event that marks its last replay: a capture takes one, captures on
+#: its stream into its memory pool (``pool=retired.pool()``; the allocator
+#: reuses a freed block on the stream that freed it) and only then drops it,
+#: so a card holds as many pools as descents ever captured at once and
+#: nothing grows from run to run (a pool whose last graph is gone cannot be
+#: named again)
+_RETIRED: dict[int, list] = {}
+_RETIRED_LOCK = threading.Lock()
+
+
+class _CudaIterationGraph:
+    """One descent iteration captured as a CUDA graph and replayed. The
+    capture runs on a side stream in thread-local mode (fleet jobs launch
+    from other threads), on the stream and in the memory pool of a retired
+    graph where the card has one; ``gen`` is registered, so each replay
+    advances its Philox stream as the eager launches would. ``release``
+    retires the graph: it is never replayed again. A capture error raises."""
+
+    def __init__(self, dev: torch.device, gen: torch.Generator) -> None:
+        self.gen = gen
+        self.index = dev.index if dev.index is not None else torch.cuda.current_device()
+        self.graph = None
+        self.side = None
+
+    def capture(self, fn) -> None:
+        with torch.cuda.device(self.index):
+            with _RETIRED_LOCK:
+                free = _RETIRED.get(self.index)
+                retired = free.pop() if free else None
+            cur = torch.cuda.current_stream()
+            pool = None
+            if retired is None:
+                self.side = torch.cuda.Stream()
+            else:
+                old, self.side, done = retired
+                cur.wait_event(done)
+                pool = old.pool()
+            self.graph = torch.cuda.CUDAGraph()
+            self.graph.register_generator_state(self.gen)
+            self.side.wait_stream(cur)
+            try:
+                with torch.cuda.stream(self.side):
+                    self.graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+                    try:
+                        fn()
+                    finally:
+                        self.graph.capture_end()
+                cur.wait_stream(self.side)
+            finally:
+                if retired is not None:
+                    old.reset()
+
+    def replay(self) -> None:
+        self.graph.replay()
+
+    def release(self) -> None:
+        if self.graph is None:
+            return
+        with torch.cuda.device(self.index):
+            done = torch.cuda.Event()
+            done.record()
+        with _RETIRED_LOCK:
+            _RETIRED.setdefault(self.index, []).append((self.graph, self.side, done))
+        self.graph = None
+
+
+def _iteration_graph(dev: torch.device, gen: torch.Generator):
+    """The graph that replays a descent's iterations on ``dev`` (draws from
+    ``gen``): a CUDA graph on a card; None elsewhere, where every iteration
+    runs eagerly."""
+    return _CudaIterationGraph(dev, gen) if dev.type == "cuda" else None
+
+
+def _drive_descent(iteration, ss: SearchState, goal_names, opts, dev, label: str,
+                   gen: torch.Generator):
     """Run ``iteration(live) -> applied`` (int tensor, 0 where not live) to
     the stop rule: ``opts.max_iters`` iterations, or ``opts.patience``
     consecutive ones that applied nothing. Returns (iterations, moves,
     convergence segment or None). Each chunk counts on the cost ledger as
-    ``<label>-chunk`` (the one loop as ``<label>-loop``)."""
+    ``<label>-chunk`` (the one loop as ``<label>-loop``).
+
+    Where ``_iteration_graph`` gives a graph and the budget leaves an
+    iteration after the first, the first iteration runs eagerly, the second
+    is captured, and it and every later one replay the capture (``gen``:
+    the iteration's draws). The counts land on the open span."""
     from ccx_torch.search import telemetry
 
     # the ledger's signature: the state's shapes and the options that shape
@@ -401,50 +492,74 @@ def _drive_descent(iteration, ss: SearchState, goal_names, opts, dev, label: str
 
     step = f"{label}-iter"
 
+    def body() -> None:
+        lv = live()
+        n = iteration(lv)
+        it.add_(lv.int())
+        stale.copy_(torch.where(lv, torch.where(n > 0, 0, stale + 1), stale))
+        moves.add_(n)
+
+    graph = _iteration_graph(dev, gen) if opts.max_iters > 1 else None
+    counts = {"graphCaptures": 0, "graphReplays": 0, "graphCaptureSeconds": 0.0}
+    calls = 0
+
     def one() -> None:
+        nonlocal calls
+        calls += 1
         with TRACER.step(step):
-            lv = live()
-            n = iteration(lv)
-            it.add_(lv.int())
-            stale.copy_(torch.where(lv, torch.where(n > 0, 0, stale + 1), stale))
-            moves.add_(n)
+            if graph is None or calls == 1:
+                body()
+                return
+            if calls == 2:
+                t0 = time.perf_counter()
+                graph.capture(body)
+                counts["graphCaptureSeconds"] = time.perf_counter() - t0
+                counts["graphCaptures"] = 1
+            graph.replay()
+            counts["graphReplays"] += 1
 
     convergence = None
-    if opts.chunk_iters > 0:
-        tap = telemetry.make_tap(len(goal_names), dev) if telemetry.enabled() else None
-        poll: dict = {}
+    try:
+        if opts.chunk_iters > 0:
+            tap = telemetry.make_tap(len(goal_names), dev) if telemetry.enabled() else None
+            poll: dict = {}
 
-        def run_one(carry, off):
-            for _ in range(opts.chunk_iters):
-                if _poll_stop(poll, live()):
-                    break
-                one()
-            if tap is not None:
-                telemetry.record(tap, ss.cost_vec[0], ss.n_prop_kind[0], ss.n_acc_kind[0], 0.0)
-            return carry, ~live()
+            def run_one(carry, off):
+                # calls past the budget are inert: the host need not queue them
+                for _ in range(min(opts.chunk_iters, opts.max_iters - off)):
+                    if _poll_stop(poll, live()):
+                        break
+                    one()
+                if tap is not None:
+                    telemetry.record(tap, ss.cost_vec[0], ss.n_prop_kind[0], ss.n_acc_kind[0], 0.0)
+                return carry, ~live()
 
-        # heartbeat energy: the top-tier cost, read after the stop flag
-        probe = (lambda _: ss.cost_vec[0, 0]) if tap is not None else None
-        run_one = costmodel.instrument(f"{label}-chunk", iters=opts.chunk_iters, sig=sig,
-                                       device=dev)(run_one)
-        drive_chunks(run_one, None, total=opts.max_iters, chunk=opts.chunk_iters, probe=probe)
-        convergence = telemetry.decode(
-            tap, goal_names, chunk_size=opts.chunk_iters, budget=opts.max_iters
-        )
-    else:
-        def loop() -> None:
-            while True:
-                with TRACER.blocked():
-                    go = bool(live())
-                if not go:
-                    break
-                one()
+            # heartbeat energy: the top-tier cost, read after the stop flag
+            probe = (lambda _: ss.cost_vec[0, 0]) if tap is not None else None
+            run_one = costmodel.instrument(f"{label}-chunk", iters=opts.chunk_iters, sig=sig,
+                                           device=dev)(run_one)
+            drive_chunks(run_one, None, total=opts.max_iters, chunk=opts.chunk_iters, probe=probe)
+            convergence = telemetry.decode(
+                tap, goal_names, chunk_size=opts.chunk_iters, budget=opts.max_iters
+            )
+        else:
+            def loop() -> None:
+                while True:
+                    with TRACER.blocked():
+                        go = bool(live())
+                    if not go:
+                        break
+                    one()
 
-        costmodel.instrument(f"{label}-loop", iters=opts.max_iters, sig=sig, device=dev)(loop)()
-    with TRACER.blocked():
-        n_iters = int(it)
-    with TRACER.blocked():
-        n_moves = int(moves)
+            costmodel.instrument(f"{label}-loop", iters=opts.max_iters, sig=sig, device=dev)(loop)()
+        with TRACER.blocked():
+            n_iters = int(it)
+        with TRACER.blocked():
+            n_moves = int(moves)
+    finally:
+        if graph is not None:
+            graph.release()
+        TRACER.add_counts(**counts)
     return n_iters, n_moves, convergence
 
 
@@ -613,7 +728,8 @@ def greedy_optimize(
     def iteration(live: torch.Tensor) -> torch.Tensor:
         return step(ss, step.draw(gen), live)
 
-    n_iters, moves, convergence = _drive_descent(iteration, ss, goal_names, opts, dev, "polish")
+    n_iters, moves, convergence = _drive_descent(iteration, ss, goal_names, opts, dev, "polish",
+                                                 gen)
     result_model = with_placement(m, ss)
     n_prop_kind, n_acc_kind = _kind_counts(ss)
     return GreedyResult(
@@ -861,7 +977,7 @@ def swap_polish(
         return step(ss, draw_swap_polish(gen, m, step.N), opts.trd_guard, live)
 
     n_iters, moves, convergence = _drive_descent(iteration, ss, goal_names, opts, m.device,
-                                                 "swap-polish")
+                                                 "swap-polish", gen)
     result_model = with_placement(m, ss)
     n_prop_kind, n_acc_kind = _kind_counts(ss)
     return GreedyResult(

@@ -5,7 +5,10 @@ the states, and the plateau exit decides on the current chunk.
   one-loop run exactly, for the batched and the sequential engine.
 * Descents: ``greedy_optimize`` and ``swap_polish`` chunked equal their
   one-loop runs exactly, with the host's early look at the stop flag on and
-  off (off, every chunk runs its inert tail after the stop).
+  off (off, every chunk runs its inert tail after the stop); so do their
+  graphed drives (a stand-in graph whose replay re-runs the captured
+  iteration), whose span counters count one capture and a replay for every
+  call after the first, and nothing at a budget of one.
 * Taps: ``record``/``lex_best_row``/``decode`` equal the JAX package's on the
   same values; a descent's tap rows equal the states of runs cut at each
   chunk's end.
@@ -18,6 +21,7 @@ the states, and the plateau exit decides on the current chunk.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +29,7 @@ import pytest
 import torch
 
 from ccx.search import telemetry as jtel
+from ccx_torch.common.tracing import TRACER
 from ccx_torch.goals.base import GoalConfig
 from ccx_torch.goals.stack import DEFAULT_GOAL_ORDER
 from ccx_torch.model.fixtures import RandomClusterSpec, random_cluster
@@ -80,33 +85,112 @@ def _result_tuple(r):
     return (r.n_iters, r.n_moves, r.n_prop_kind, r.n_acc_kind)
 
 
-@pytest.mark.parametrize("poll", [True, False])
-def test_chunked_greedy_equals_one_loop(small, poll, monkeypatch):
+class _Replayed:
+    """A stand-in for a descent's CUDA graph: ``capture`` records the
+    iteration's closure and ``replay`` runs it again."""
+
+    def __init__(self, dev, gen) -> None:
+        self.fn = None
+        self.released = False
+
+    def capture(self, fn) -> None:
+        assert self.fn is None
+        self.fn = fn
+
+    def replay(self) -> None:
+        self.fn()
+
+    def release(self) -> None:
+        self.released = True
+
+
+def _use_graphs(monkeypatch) -> list:
+    """Drive every descent through stand-in graphs; returns those made."""
+    made = []
+
+    def make(dev, gen):
+        made.append(_Replayed(dev, gen))
+        return made[-1]
+
+    monkeypatch.setattr(tgreedy, "_iteration_graph", make)
+    return made
+
+
+def _counted(fn, m, opts):
+    """(the descent's result, its span's graph counters)."""
+    with TRACER.span("descent") as s:
+        res = fn(m, CFG, GOALS, opts)
+    return res, (s.attrs["graphCaptures"], s.attrs["graphReplays"])
+
+
+def _check_counts(counted, res, opts, poll, graph) -> None:
+    """One capture, and a replay for every call of the iteration after the
+    first: the iterations where the host sees the stop at once, every
+    chunk's whole length up to the budget where it does not look."""
+    calls = res.n_iters
+    if opts.chunk_iters and not poll:
+        calls = min(opts.chunk_iters * math.ceil(res.n_iters / opts.chunk_iters), opts.max_iters)
+    assert counted == ((int(calls > 1), calls - 1) if graph else (0, 0))
+
+
+def _drives(*extra: str) -> list:
+    """(host poll, graphed, *extra flags) cases; the eager cases without a
+    flag keep the ids ``True`` and ``False``."""
+    flags = ("graph",) + extra
+    out = []
+    for mask in range(1 << len(flags)):
+        on = [bool(mask >> i & 1) for i in range(len(flags))]
+        for poll in (True, False):
+            name = "-".join([str(poll)] + [f for f, o in zip(flags, on) if o])
+            out.append(pytest.param(poll, *on, id=name))
+    return out
+
+
+@pytest.mark.parametrize("poll, graph, lead", _drives("lead"))
+def test_chunked_greedy_equals_one_loop(small, poll, graph, lead, monkeypatch):
+    opts = tgreedy.GreedyOptions(n_candidates=4, max_iters=30, patience=1, seed=4,
+                                 leadership_only=lead)
+    eager = tgreedy.greedy_optimize(small, CFG, GOALS, dataclasses.replace(opts, chunk_iters=0))
     if not poll:
         monkeypatch.setattr(tgreedy, "_poll_stop", lambda *a: False)
-    opts = tgreedy.GreedyOptions(n_candidates=4, max_iters=30, patience=1, seed=4)
-    mono = tgreedy.greedy_optimize(small, CFG, GOALS, dataclasses.replace(opts, chunk_iters=0))
-    for chunk in (7, 50):
-        ch = tgreedy.greedy_optimize(small, CFG, GOALS, dataclasses.replace(opts, chunk_iters=chunk))
-        _same_model(mono.model, ch.model)
-        assert _result_tuple(mono) == _result_tuple(ch)
-        assert torch.equal(mono.stack_after.costs, ch.stack_after.costs)
+    made = _use_graphs(monkeypatch) if graph else []
+    runs = [dataclasses.replace(opts, chunk_iters=c) for c in (0, 7, 50)]
+    for o in runs:
+        ch, counted = _counted(tgreedy.greedy_optimize, small, o)
+        _same_model(eager.model, ch.model)
+        assert _result_tuple(eager) == _result_tuple(ch)
+        assert torch.equal(eager.stack_after.costs, ch.stack_after.costs)
+        _check_counts(counted, ch, o, poll, graph)
+    assert len(made) == (len(runs) if graph else 0) and all(g.released for g in made)
     # the stop fired inside a chunk: its later iterations were inert
-    assert 0 < mono.n_moves and mono.n_iters < opts.max_iters and mono.convergence is None
+    assert 0 < eager.n_moves and eager.n_iters < opts.max_iters and eager.convergence is None
 
 
-@pytest.mark.parametrize("poll", [True, False])
-def test_chunked_swap_polish_equals_one_loop(poll, monkeypatch):
-    if not poll:
-        monkeypatch.setattr(tgreedy, "_poll_stop", lambda *a: False)
+@pytest.mark.parametrize("poll, graph", _drives())
+def test_chunked_swap_polish_equals_one_loop(poll, graph, monkeypatch):
     m = random_cluster(SPARSE, device="cpu")
     opts = tgreedy.SwapPolishOptions(n_swap_candidates=2, n_lead_candidates=2, max_iters=20,
                                      patience=1, seed=2)
-    mono = tgreedy.swap_polish(m, CFG, GOALS, dataclasses.replace(opts, chunk_iters=0))
-    ch = tgreedy.swap_polish(m, CFG, GOALS, dataclasses.replace(opts, chunk_iters=6))
-    _same_model(mono.model, ch.model)
-    assert _result_tuple(mono) == _result_tuple(ch)
-    assert 0 < mono.n_moves and mono.n_iters < opts.max_iters
+    eager = tgreedy.swap_polish(m, CFG, GOALS, dataclasses.replace(opts, chunk_iters=0))
+    if not poll:
+        monkeypatch.setattr(tgreedy, "_poll_stop", lambda *a: False)
+    made = _use_graphs(monkeypatch) if graph else []
+    for o in (dataclasses.replace(opts, chunk_iters=c) for c in (0, 6)):
+        ch, counted = _counted(tgreedy.swap_polish, m, o)
+        _same_model(eager.model, ch.model)
+        assert _result_tuple(eager) == _result_tuple(ch)
+        _check_counts(counted, ch, o, poll, graph)
+    assert len(made) == (2 if graph else 0) and all(g.released for g in made)
+    assert 0 < eager.n_moves and eager.n_iters < opts.max_iters
+
+
+@pytest.mark.parametrize("chunk", [0, 7])
+def test_a_budget_of_one_captures_no_graph(small, chunk, monkeypatch):
+    monkeypatch.setattr(tgreedy, "_poll_stop", lambda *a: False)
+    made = _use_graphs(monkeypatch)
+    opts = tgreedy.GreedyOptions(n_candidates=4, max_iters=1, seed=4, chunk_iters=chunk)
+    res, counted = _counted(tgreedy.greedy_optimize, small, opts)
+    assert res.n_iters == 1 and counted == (0, 0) and not made
 
 
 def test_descent_tap_rows_equal_the_cut_runs(small):

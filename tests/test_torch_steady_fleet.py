@@ -38,6 +38,9 @@ def _small_fleet(n_clusters: int = 3, n_windows: int = 3) -> dict:
 def test_run_steady_fleet_on_the_cpu_is_verified_and_restores_the_scheduler(monkeypatch):
     monkeypatch.setenv("CCX_FLEET_MAX_CONCURRENT", "2")
     monkeypatch.setenv("CCX_FLEET_DISPATCH_WIDTH", "3")
+    # the warm store is process-wide: drop what earlier test files banked
+    # in this process, so the session counts below are this run's
+    tinc.STORE.clear()
     before = FLEET.max_concurrent, FLEET.dispatch_width
     out = _small_fleet()
     assert (FLEET.max_concurrent, FLEET.dispatch_width) == before
