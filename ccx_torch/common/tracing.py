@@ -194,6 +194,13 @@ class Span:
         #: the owning thread's span stack
         self.stack: list[Span] | None = None
 
+    def add_counts(self, **counts) -> None:
+        """Add ``counts`` to the attrs, summed with what earlier calls left
+        there (a phase that runs one loop several times reads the totals)."""
+        for key, v in counts.items():
+            total = self.attrs.get(key, 0) + v
+            self.attrs[key] = round(total, 6) if isinstance(total, float) else total
+
     def counters(self) -> tuple[int, float, float]:
         """(syncs, sync wait s, grant wait s) of this span alone."""
         return self.syncs, self.sync_ns / 1e9, self.grant_ns / 1e9
@@ -609,15 +616,18 @@ class Tracer:
             st[-1].grant_ns += int(seconds * 1e9)
 
     def add_counts(self, **counts) -> None:
-        """Add ``counts`` to the innermost open span's attrs, summed with
-        what earlier calls left there (a phase that runs one loop several
-        times reads the totals). Outside any span it does nothing."""
+        """``Span.add_counts`` on the innermost open span. Outside any span
+        it does nothing."""
         st = getattr(self._tl, "stack", None)
         if st:
-            attrs = st[-1].attrs
-            for key, v in counts.items():
-                total = attrs.get(key, 0) + v
-                attrs[key] = round(total, 6) if isinstance(total, float) else total
+            st[-1].add_counts(**counts)
+
+    def set_attrs(self, **attrs) -> None:
+        """Set ``attrs`` on the innermost open span (a later call
+        overwrites). Outside any span it does nothing."""
+        st = getattr(self._tl, "stack", None)
+        if st:
+            st[-1].attrs.update(attrs)
 
     # ----- requests across threads ----------------------------------------------
 

@@ -75,7 +75,7 @@ from ccx_torch.proposals import ColumnarDiff, ExecutionProposal, columnar_diff
 from ccx_torch.search.annealer import AnnealOptions, allows_inter_broker, anneal, hot_partition_list
 from ccx_torch.search.greedy import GreedyOptions, SwapPolishOptions, greedy_optimize, swap_polish
 from ccx_torch.search.incremental import ColdStartRequired, IncrementalOptions, WarmStart
-from ccx_torch.search.repair import finalize_preferred_leaders, hard_repair, topic_rebalance
+from ccx_torch.search.repair import finalize_preferred_leaders, hard_repair_counted, topic_rebalance
 from ccx_torch.search.state import MOVE_KIND_NAMES
 from ccx_torch.verify import Verification, verify_optimization
 
@@ -410,7 +410,7 @@ class _Run:
             self.progress_cb(name)
         s = TRACER.start(name, kind="phase", device=self.device, **attrs)
         try:
-            yield
+            yield s
             _sync(self.device)
         finally:
             TRACER.end(s)
@@ -523,7 +523,8 @@ class _BackgroundRepair:
                 # the current CUDA device is per thread
                 with (torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()):
                     with costmodel.cold_window():
-                        self._box["res"] = hard_repair(m, cfg, goal_names, backend=backend)
+                        self._box["res"] = hard_repair_counted(m, cfg, goal_names,
+                                                               backend=backend)
                         _sync(dev)
             except BaseException as e:  # noqa: BLE001 — re-raised by the joining thread
                 self._box["err"] = e
@@ -545,7 +546,12 @@ class _BackgroundRepair:
         run.phases["repair-concurrent"] = self._box.get("wall", 0.0)
         if "err" in self._box:
             raise self._box["err"]
-        return self._box["res"]
+        model, counts = self._box["res"]
+        return model, counts["movedReplicas"]
+
+    def counts(self) -> dict:
+        """The repair's counters (``hard_repair_counted``), once joined."""
+        return self._box["res"][1]
 
 
 def _make_run_mesh(opts: OptimizeOptions, device: torch.device):
@@ -626,17 +632,20 @@ def _optimize_cold(
     if overlap:
         # the repair phase starts the thread; the first anneal chunk runs
         # beside it and the anneal phase joins it
-        with phase("repair", backend=backend, overlap=True):
+        with phase("repair", backend=backend, overlap=True) as repair_span:
             bg = _BackgroundRepair(m, cfg, goal_names, backend)
         try:
             with phase("anneal", **mesh_attrs):
                 sa, n_polish = _anneal_overlapped(m, cfg, goal_names, opts.anneal, run, bg, mesh)
+            repair_span.add_counts(**bg.counts())
         finally:
             # never leave the thread running past a failed or cancelled anneal
             bg.join()
     else:
-        with phase("repair", backend=backend, overlap=False):
-            model, n_polish = hard_repair(m, cfg, goal_names, backend=backend)
+        with phase("repair", backend=backend, overlap=False) as repair_span:
+            model, counts = hard_repair_counted(m, cfg, goal_names, backend=backend)
+            repair_span.add_counts(**counts)
+            n_polish = counts["movedReplicas"]
         with phase("hot-list"):
             evac = hot_partition_list(model, goal_names, cfg) if inter else None
         with phase("anneal", **mesh_attrs):
@@ -649,11 +658,14 @@ def _optimize_cold(
             tally(polish, "polish")
             model, stack_after = polish.model, polish.stack_after
             n_polish += polish.n_moves
-        # the repair retries run with the polish off too
+        # the repair retries run with the polish off too; their counters
+        # go to the repair span
         for _ in range(max(opts.max_repair_rounds - 1, 0)):
             if _hard_violations(stack_after) <= 0:
                 break
-            model, n_r = hard_repair(model, cfg, goal_names, backend=backend)
+            model, counts = hard_repair_counted(model, cfg, goal_names, backend=backend)
+            repair_span.add_counts(**counts)
+            n_r = counts["movedReplicas"]
             n_polish += n_r
             if not opts.run_polish:
                 if n_r == 0:

@@ -1565,7 +1565,12 @@ def anneal(
     chunk drive). Otherwise the chains ride the mesh as data parallelism:
     ``n_chains`` is rounded up to a multiple of the mesh's size (logged)
     and the chains run on the model's device, which on the virtual mesh is
-    every logical device's physical one."""
+    every logical device's physical one.
+
+    The innermost open span gets the attribute ``engine`` (``step_engine``)
+    and the counter ``subSteps``: the proposal applications the run made,
+    steps x ``moves_per_step`` on the sequential engine and steps on the
+    others (the sharded engine sets neither)."""
     if mesh is not None:
         parts = mesh.shape.get("parts", 1)
         if parts > 1:
@@ -1618,7 +1623,11 @@ def anneal(
             return opts.t0 * decay**t
         return opts.t0 * torch.pow(torch.full_like(frac, decay), t * frac)
 
+    n_run = 0
+
     def run_steps(lo: int, hi: int) -> None:
+        nonlocal n_run
+        n_run += max(hi - lo, 0)
         for t in range(lo, hi):
             with TRACER.step("sa-step"):
                 temp = temperature(t)
@@ -1692,6 +1701,9 @@ def anneal(
         if plateau is not None:
             plateau_info = plateau.to_json(budget_chunks=(n + chunk - 1) // chunk)
 
+    # counted on the host: no device read
+    TRACER.set_attrs(engine=engine)
+    TRACER.add_counts(subSteps=n_run * (moves if engine == "sequential" else 1))
     with TRACER.blocked():
         cost_vecs = state.cost_vec.cpu().numpy()
     best = best_chain_index(cost_vecs)

@@ -220,7 +220,14 @@ def _repair_nk(m: TensorClusterModel, nk: int | None) -> int:
     return _evac_bucket(m.P) if nk is None else nk
 
 
-def hard_repair(
+def hard_repair(m: TensorClusterModel, cfg: GoalConfig, goal_names: tuple[str, ...],
+                **kw) -> tuple[TensorClusterModel, int]:
+    """``hard_repair_counted`` returning (repaired model, total moves)."""
+    model, counts = hard_repair_counted(m, cfg, goal_names, **kw)
+    return model, counts["movedReplicas"]
+
+
+def hard_repair_counted(
     m: TensorClusterModel,
     cfg: GoalConfig,
     goal_names: tuple[str, ...],
@@ -228,14 +235,18 @@ def hard_repair(
     seed: int = 17,
     nk: int | None = None,
     backend: str = "host",
-) -> tuple[TensorClusterModel, int]:
+) -> tuple[TensorClusterModel, dict]:
     """Sweep until no targetable hard offenders remain (or ``max_sweeps``).
 
-    Returns (repaired model, total moves). Only stacks that allow
-    inter-broker movement get placement sweeps; leader placement is fixed
-    in all cases. The loop stops after a sweep that moved nothing, or when
-    capacity shedding stops reducing the over-capacity broker count while no
-    structural offender (dead broker or disk, duplicate, rack) remained.
+    Returns the repaired model and its counts, named as the repair phase's
+    span counters: ``sweeps`` (sweeps run), ``movedReplicas`` (their moves)
+    and ``structuralOffenders`` (the first sweep's structural offenders),
+    all read from what each sweep already brings to the host. Only stacks
+    that allow inter-broker movement get placement sweeps; leader placement
+    is fixed in all cases. The loop stops after a sweep that moved nothing,
+    or when capacity shedding stops reducing the over-capacity broker count
+    while no structural offender (dead broker or disk, duplicate, rack)
+    remained.
 
     ``backend`` names the JAX package's loop driver: ``"device"`` (one
     fused program) or ``"host"`` (one sweep and one host read per
@@ -246,7 +257,7 @@ def hard_repair(
     if backend not in REPAIR_BACKENDS:
         raise ValueError(f"repair backend must be one of {REPAIR_BACKENDS}, got {backend!r}")
     assignment, leader_slot, replica_disk = m.assignment, m.leader_slot, m.replica_disk
-    total = 0
+    total = first_struct = sweeps = 0
     if allows_inter_broker(goal_names):
         gen = torch.Generator(device=m.device)
         gen.manual_seed(seed)
@@ -256,13 +267,15 @@ def hard_repair(
             cfg=cfg, nk=_repair_nk(m, nk),
         )
         prev_over = None
-        for _ in range(max_sweeps):
+        for sweeps in range(1, max_sweeps + 1):
             assignment, replica_disk, n, n_over, n_struct = _sweep(
                 m, assignment, leader_slot, replica_disk, gen, **kw
             )
             with TRACER.blocked():
                 counts = torch.stack([n, n_over, n_struct]).tolist()
             n, n_over, n_struct = (int(x) for x in counts)
+            if sweeps == 1:
+                first_struct = n_struct
             total += n
             if n == 0:
                 break
@@ -272,7 +285,7 @@ def hard_repair(
     leader_slot = _leader_fix(m, assignment, leader_slot)
     return (
         m.replace(assignment=assignment, leader_slot=leader_slot, replica_disk=replica_disk),
-        total,
+        {"sweeps": sweeps, "movedReplicas": total, "structuralOffenders": first_struct},
     )
 
 

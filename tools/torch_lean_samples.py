@@ -89,7 +89,7 @@ def record_stages(log: list, goals, cfg) -> None:
 
         setattr(optimizer, name, wrapped)
 
-    for name in ("hard_repair", "anneal", "greedy_optimize", "topic_rebalance", "swap_polish",
+    for name in ("hard_repair_counted", "anneal", "greedy_optimize", "topic_rebalance", "swap_polish",
                  "finalize_preferred_leaders"):
         wrap(name)
 
