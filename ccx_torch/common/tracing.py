@@ -105,12 +105,13 @@ ENV_SYNC = "CCX_TRACE_SYNC"
 
 def _device_sync(device) -> None:
     """Wait for every kernel queued on ``device`` (a CUDA ``torch.device``;
-    anything else has nothing to drain). A failing synchronize raises."""
+    anything else has nothing to drain; ``ccx_torch.device.synchronize``).
+    A failing synchronize raises."""
     if device is None or getattr(device, "type", None) != "cuda":
         return
-    import torch
+    from ccx_torch.device import synchronize
 
-    torch.cuda.synchronize(device)
+    synchronize(device)
 
 
 #: span ids, process-wide (``next`` on a count is atomic under the GIL)

@@ -17,6 +17,9 @@ behind slow answers.
 The probe child is sent SIGTERM with a grace period and only then killed,
 and reaping is bounded, so a child stuck in device I/O cannot hang the
 caller.
+
+``synchronize`` is the search's device-wide synchronize: it waits out a
+CUDA graph capture that another thread (a fleet job) has under way.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import logging
 import os
 import subprocess
 import sys
+import threading
 
 import torch
 
@@ -40,6 +44,19 @@ PROBE_CODE = "import torch\nx = torch.ones(1, device='cuda') + 1\ntorch.cuda.syn
 
 class DeviceUnresponsive(RuntimeError):
     """The liveness probe failed or timed out."""
+
+
+#: held while a CUDA graph captures (``ccx_torch.search.graphs``): a
+#: device-wide synchronize from another thread fails during a capture and
+#: invalidates it, so ``synchronize`` waits for the capture to end
+CAPTURE_LOCK = threading.Lock()
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for every kernel queued on the CUDA ``device``; never while
+    another thread captures a graph (``CAPTURE_LOCK``)."""
+    with CAPTURE_LOCK:
+        torch.cuda.synchronize(device)
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:

@@ -67,6 +67,7 @@ import torch
 
 from ccx_torch.common import costmodel
 from ccx_torch.common.tracing import TRACER
+from ccx_torch.device import synchronize
 from ccx_torch.goals.base import GOAL_REGISTRY, GoalConfig
 from ccx_torch.goals.stack import DEFAULT_GOAL_ORDER, StackResult, evaluate_stack
 from ccx_torch.model.stats import ClusterModelStats, balancedness_score, cluster_model_stats
@@ -375,10 +376,11 @@ def _hard_violations(stack: StackResult) -> float:
 
 
 def _sync(device: torch.device) -> None:
-    """Drain ``device``'s queue: a host sync, counted on the open span."""
+    """Drain ``device``'s queue (``ccx_torch.device.synchronize``): a host
+    sync, counted on the open span."""
     if device.type == "cuda":
         with TRACER.blocked():
-            torch.cuda.synchronize(device)
+            synchronize(device)
 
 
 class _Run:

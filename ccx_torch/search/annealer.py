@@ -36,6 +36,18 @@ and ``n_temps > 1`` arms the replica-exchange ladder, which permutes whole
 chains between temperature rungs at chunk boundaries
 (``exchange_permutation``). Chunking draws nothing and changes no step, so a
 chunked run with ``n_temps=1`` equals the one-loop run exactly.
+
+On a card a run's steps after the first are replays of one CUDA graph
+(``graphs.GraphedLoop`` through ``_step_graph``, the seam the tests
+replace), across chunk boundaries: the first step runs eagerly, the second
+is captured, and every later one replays it, the draws advancing the run's
+Philox stream as eager launches would. Such a run writes each step's
+temperature (a ``DeviceTemperature``; a ladder's step index) and swap
+share into device scalars before the step, so the eager first step and
+every replay share one arithmetic, the eager step's bit for bit. The taps,
+the probe, the plateau read, the heartbeats and the ladder's exchange stay
+on the host, between replays. Off a card every step is eager and takes the
+schedule's values as host floats.
 """
 
 from __future__ import annotations
@@ -55,6 +67,8 @@ from ccx_torch.goals.base import GOAL_REGISTRY, GoalConfig
 from ccx_torch.goals.stack import DEFAULT_GOAL_ORDER, StackResult, evaluate_stack, soft_weights
 from ccx_torch.model.aggregates import BROKER_FIELDS, broker_aggregates
 from ccx_torch.model.tensor_model import TensorClusterModel
+from ccx_torch.search.graphs import GraphedLoop
+from ccx_torch.search.graphs import step_graph as _step_graph
 from ccx_torch.search.state import (
     KIND_LEADERSHIP_SWAP,
     KIND_REPLICA_SWAP,
@@ -686,12 +700,30 @@ def goal_tols(cost_vec: torch.Tensor) -> torch.Tensor:
     return 1e-6 + 1e-6 * cost_vec.abs()
 
 
+@dataclasses.dataclass(frozen=True)
+class DeviceTemperature:
+    """A flat run's temperature as a captured step reads it: ``inv``, a
+    0-dim float32 tensor written before each step, holds 1 / max(t, 1e-30)
+    taken in double and rounded to float32. CUDA divides a float32 tensor
+    by a host float as a multiply by that very number (torch 2.11 on an
+    H100: no bit differed over 350 temperatures x 2^20 values, where the
+    reciprocal of float32(t) and a true division by it differ), so
+    ``lex_accept`` multiplies and the Metropolis test keeps the eager
+    step's bits."""
+
+    inv: torch.Tensor
+
+    def set(self, t: float) -> None:
+        """Write temperature ``t`` (an async fill: no host sync)."""
+        self.inv.fill_(float(np.float32(1.0 / max(t, 1e-30))))
+
+
 def lex_accept(
     cur_vec: torch.Tensor,      # float32[K, G]
     new_vec: torch.Tensor,      # float32[K, G]
     hard_arr: torch.Tensor,     # bool[G]
     weights: torch.Tensor,      # float32[G] tier weights
-    temperature: float | torch.Tensor,  # one, or float32[K] per candidate
+    temperature: float | torch.Tensor | DeviceTemperature,  # one, or float32[K] per candidate
     u: torch.Tensor,            # float32[K] uniform in [1e-12, 1)
 ) -> torch.Tensor:
     """Vector-lexicographic SA acceptance (see module docstring)."""
@@ -702,17 +734,20 @@ def lex_accept(
     lex_lt = any_sig & (d.gather(-1, first)[..., 0] < 0)
     hard_up = (sig & hard_arr & (d > 0)).any(-1)
     soft_d = torch.where(hard_arr, 0.0, d * weights).sum(-1)
-    if torch.is_tensor(temperature):
-        t = temperature.clamp(min=1e-30)
+    if isinstance(temperature, DeviceTemperature):
+        scaled = -soft_d * temperature.inv
+    elif torch.is_tensor(temperature):
+        scaled = -soft_d / temperature.clamp(min=1e-30)
     else:
-        t = max(temperature, 1e-30)
-    metropolis = torch.log(u) < (-soft_d / t)
+        scaled = -soft_d / max(temperature, 1e-30)
+    metropolis = torch.log(u) < scaled
     return ~hard_up & (lex_lt | ~any_sig | metropolis)
 
 
 def _chain_temp(temperature, chain: torch.Tensor):
     """The temperature of each candidate's chain: the one temperature of a
-    flat run, or a ladder's per-chain temperatures gathered by chain."""
+    flat run (a host float or a ``DeviceTemperature``), or a ladder's
+    per-chain temperatures gathered by chain."""
     return temperature[chain.long()] if torch.is_tensor(temperature) else temperature
 
 
@@ -739,7 +774,7 @@ def draw_single_move(
 def _single_move(
     state: SearchState,
     d: SingleMoveDraws,
-    temperature: float | torch.Tensor,
+    temperature: float | torch.Tensor | DeviceTemperature,
     evac: torch.Tensor,
     n_evac: int,
     *,
@@ -770,7 +805,7 @@ def _single_move(
 def _anneal_step(
     state: SearchState,
     gen: torch.Generator,
-    temperature: float | torch.Tensor,
+    temperature: float | torch.Tensor | DeviceTemperature,
     evac: torch.Tensor,
     n_evac: int,
     *,
@@ -833,8 +868,8 @@ def _pick(use: torch.Tensor, a, b):
 def _unified_move(
     state: SearchState,
     d: UnifiedDraws,
-    temperature: float | torch.Tensor,
-    swap_share: float,
+    temperature: float | torch.Tensor | DeviceTemperature,
+    swap_share: float | torch.Tensor,
     evac: torch.Tensor,
     n_evac: int,
     *,
@@ -930,14 +965,15 @@ def broker_masks(touched: torch.Tensor, B: int) -> torch.Tensor:
     return mask[:, :B] > 0
 
 
-def _pool_scores(vp: PartitionView, chain: torch.Tensor, press, over: bool, m, sdt):
+def _pool_scores(vp: PartitionView, chain: torch.Tensor, press, over: bool, m, sdt,
+                 uw: torch.Tensor):
     """Coupled endpoint quality of pool views ``vp`` (chain ``chain``):
     (replica-swap logit, leadership-rotation logit, best slot). Endpoint a
     (``over``) wants a hot replica on an over-band broker, endpoint b a cool
     one on an under-band broker; a rotation endpoint is the leader broker's
-    leader-bytes pressure times the leader's bytes in."""
+    leader-bytes pressure times the leader's bytes in. ``uw``: the run's
+    ``usage_weights``."""
     B, R = m.B, m.R
-    uw = usage_weights(m.device)
     b = vp.assign.clamp(0, B - 1).long()
     c = chain.long()[:, None]
     ok = (vp.assign >= 0) & vp.pvalid[:, None] & ~vp.immovable[:, None]
@@ -973,8 +1009,8 @@ def _lex_not_worse(vec: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
 def _anneal_step_batched(
     state: SearchState,
     d: BatchedDraws,
-    temperature: float | torch.Tensor,
-    swap_share: float,
+    temperature: float | torch.Tensor | DeviceTemperature,
+    swap_share: float | torch.Tensor,
     evac: torch.Tensor,
     n_evac: int,
     *,
@@ -987,6 +1023,7 @@ def _anneal_step_batched(
     vector_fn,
     group,
     cfg: GoalConfig,
+    uw: torch.Tensor,
     gather=gather_views,
     place=None,
 ) -> None:
@@ -1001,8 +1038,9 @@ def _anneal_step_batched(
     lexicographically no worse than the base (a descent) or than the base
     plus the members' own deltas (the exploration each member's Metropolis
     test sanctioned): a deterministic guard against the couplings that are
-    not sums (leader evenness, the TRD normalizer). ``gather``/``place``
-    as in ``_single_move``."""
+    not sums (leader evenness, the TRD normalizer). ``uw`` is the run's
+    ``usage_weights`` (the coupled pools' scores); ``gather``/``place`` as
+    in ``_single_move``."""
     C, K = state.n_chains, moves_per_step
     N = C * K
     B, T, R = m.B, m.num_topics, m.R
@@ -1034,8 +1072,8 @@ def _anneal_step_batched(
         sdt = scoring_dtype(pp.bf16)
         vpa = view_rows(views, slice(0, N * pool))
         vpb = view_rows(views, slice(N * pool, 2 * N * pool))
-        rs_a, ls_a, slot_a = _pool_scores(vpa, chain_pool, press, True, m, sdt)
-        rs_b, ls_b, slot_b = _pool_scores(vpb, chain_pool, press, False, m, sdt)
+        rs_a, ls_a, slot_a = _pool_scores(vpa, chain_pool, press, True, m, sdt, uw)
+        rs_b, ls_b, slot_b = _pool_scores(vpb, chain_pool, press, False, m, sdt, uw)
 
         def gumbel_pick(rs, ls, u):
             logit = torch.where(use_lead[:, None], ls.view(N, pool), rs.view(N, pool))
@@ -1208,7 +1246,9 @@ def step_kwargs(
     m: TensorClusterModel, cfg: GoalConfig, goal_names: tuple[str, ...], pp: ProposalParams,
     engine: str, moves: int, group,
 ) -> dict:
-    """The keyword arguments of ``engine``'s step function."""
+    """The keyword arguments of ``engine``'s step function, built once per
+    run (the batched engine's ``usage_weights`` among them: a counted host
+    copy, never made inside a step)."""
     hard_mask = tuple(GOAL_REGISTRY[n].hard for n in goal_names)
     with TRACER.blocked():
         hard_arr = torch.tensor(hard_mask, device=m.device)
@@ -1223,7 +1263,8 @@ def step_kwargs(
     else:
         kw.update(swap_scorer=make_swap_scorer(m, goal_names, cfg))
     if engine == "batched":
-        kw.update(moves_per_step=moves, vector_fn=make_cost_vector_fn(m, goal_names, cfg), cfg=cfg)
+        kw.update(moves_per_step=moves, vector_fn=make_cost_vector_fn(m, goal_names, cfg), cfg=cfg,
+                  uw=usage_weights(m.device))
     return kw
 
 
@@ -1568,9 +1609,11 @@ def anneal(
     every logical device's physical one.
 
     The innermost open span gets the attribute ``engine`` (``step_engine``)
-    and the counter ``subSteps``: the proposal applications the run made,
+    and the counters ``subSteps``: the proposal applications the run made,
     steps x ``moves_per_step`` on the sequential engine and steps on the
-    others (the sharded engine sets neither)."""
+    others, and ``graphCaptures``, ``graphReplays``, ``graphCaptureSeconds``
+    (module docstring; 0 off a card, and on one a run of n >= 2 steps counts
+    1 capture and n - 1 replays). The sharded engine sets none of them."""
     if mesh is not None:
         parts = mesh.shape.get("parts", 1)
         if parts > 1:
@@ -1623,6 +1666,47 @@ def anneal(
             return opts.t0 * decay**t
         return opts.t0 * torch.pow(torch.full_like(frac, decay), t * frac)
 
+    def step(temp, share) -> None:
+        if engine == "single":
+            _anneal_step(state, gen, temp, evac_idx, n_evac, **kw)
+        elif engine == "batched":
+            d = draw_batched(gen, C, moves, m, pp, n_evac)
+            _anneal_step_batched(state, d, temp, share, evac_idx, n_evac, **kw)
+        else:
+            for _ in range(moves):
+                d = draw_unified(gen, C, m, pp, n_evac)
+                _unified_move(state, d, temp, share, evac_idx, n_evac, **kw)
+
+    graph = _step_graph(m.device, gen) if opts.n_steps > 1 else None
+    if graph is None:
+        # eager steps take the schedule's values as host floats
+        now = 0
+
+        def write(t: int) -> None:
+            nonlocal now
+            now = t
+
+        def body() -> None:
+            step(temperature(now), pp.p_swap + ramp * now)
+    else:
+        # every step of a graphed run, the eager first one too, reads the
+        # schedule from device scalars written before it, which a capture
+        # does not freeze; a ladder's temperatures come from the step index
+        f32 = dict(dtype=torch.float32, device=m.device)
+        at, share = torch.zeros((), **f32), torch.zeros((), **f32)
+        flat = DeviceTemperature(torch.zeros((), **f32))
+
+        def write(t: int) -> None:
+            share.fill_(pp.p_swap + ramp * t)
+            if frac is None:
+                flat.set(opts.t0 * decay**t)
+            else:
+                at.fill_(t)
+
+        def body() -> None:
+            step(flat if frac is None else temperature(at), share)
+
+    graphed = GraphedLoop(graph, body)
     n_run = 0
 
     def run_steps(lo: int, hi: int) -> None:
@@ -1630,76 +1714,72 @@ def anneal(
         n_run += max(hi - lo, 0)
         for t in range(lo, hi):
             with TRACER.step("sa-step"):
-                temp = temperature(t)
-                share = pp.p_swap + ramp * t
-                if engine == "single":
-                    _anneal_step(state, gen, temp, evac_idx, n_evac, **kw)
-                elif engine == "batched":
-                    d = draw_batched(gen, C, moves, m, pp, n_evac)
-                    _anneal_step_batched(state, d, temp, share, evac_idx, n_evac, **kw)
-                else:
-                    for _ in range(moves):
-                        d = draw_unified(gen, C, m, pp, n_evac)
-                        _unified_move(state, d, temp, share, evac_idx, n_evac, **kw)
+                write(t)
+                graphed()
 
     convergence = plateau_info = None
     # the cost ledger's signature of this run's chunk: the state's shapes
     # and the step's engine and sizes (never the budget or the seed)
     sig = costmodel.signature(state, engine, moves, n_temps, opts.chunk_steps)
-    if not chunked:
-        costmodel.instrument("sa-monolith", iters=opts.n_steps, sig=sig, device=m.device)(
-            run_steps)(0, opts.n_steps)
-    else:
-        from ccx_torch.search import telemetry
+    try:
+        if not chunked:
+            costmodel.instrument("sa-monolith", iters=opts.n_steps, sig=sig, device=m.device)(
+                run_steps)(0, opts.n_steps)
+        else:
+            from ccx_torch.search import telemetry
 
-        chunk = int(opts.chunk_steps)
-        G = len(goal_names)
-        tap = telemetry.make_tap(G, m.device) if telemetry.enabled() else None
-        interval = max(int(opts.exchange_interval), 1)
-        ex_kw = {}
-        if n_temps > 1:
-            ex_kw = dict(n_temps=n_temps, hard_arr=kw["hard_arr"], weights=kw["weights"])
+            chunk = int(opts.chunk_steps)
+            G = len(goal_names)
+            tap = telemetry.make_tap(G, m.device) if telemetry.enabled() else None
+            interval = max(int(opts.exchange_interval), 1)
+            ex_kw = {}
+            if n_temps > 1:
+                ex_kw = dict(n_temps=n_temps, hard_arr=kw["hard_arr"], weights=kw["weights"])
 
-        def run_one(carry, off):
-            # steps at or past the budget are inert: never run, never drawn
-            hi = min(off + chunk, opts.n_steps)
-            run_steps(off, hi)
-            t_last = max(min(off + chunk, n) - 1, 0)
-            ex_att = ex_acc = None
-            chunk_ord = off // chunk
-            if n_temps > 1 and (chunk_ord + 1) % interval == 0 and off < n:
-                u = draw_exchange(gen, C, m.device)
-                perm, ex_att, ex_acc = exchange_permutation(
-                    state.cost_vec, temperature(t_last), u,
-                    parity=(chunk_ord // interval) % 2, **ex_kw,
+            def run_one(carry, off):
+                # steps at or past the budget are inert: never run, never drawn
+                hi = min(off + chunk, opts.n_steps)
+                run_steps(off, hi)
+                t_last = max(min(off + chunk, n) - 1, 0)
+                ex_att = ex_acc = None
+                chunk_ord = off // chunk
+                if n_temps > 1 and (chunk_ord + 1) % interval == 0 and off < n:
+                    u = draw_exchange(gen, C, m.device)
+                    perm, ex_att, ex_acc = exchange_permutation(
+                        state.cost_vec, temperature(t_last), u,
+                        parity=(chunk_ord // interval) % 2, **ex_kw,
+                    )
+                    permute_chains(state, perm)
+                if tap is not None:
+                    telemetry.record(
+                        tap, telemetry.lex_best_row(state.cost_vec),
+                        state.n_prop_kind.sum(0), state.n_acc_kind.sum(0),
+                        opts.t0 * decay**t_last, ex_att, ex_acc,
+                    )
+                return carry, None
+
+            plateau = None
+            if opts.plateau_window > 0 and tap is not None:
+                plateau = PlateauExit(
+                    row=lambda _: telemetry.current_row(tap, G), window=int(opts.plateau_window)
                 )
-                permute_chains(state, perm)
-            if tap is not None:
-                telemetry.record(
-                    tap, telemetry.lex_best_row(state.cost_vec),
-                    state.n_prop_kind.sum(0), state.n_acc_kind.sum(0),
-                    opts.t0 * decay**t_last, ex_att, ex_acc,
-                )
-            return carry, None
-
-        plateau = None
-        if opts.plateau_window > 0 and tap is not None:
-            plateau = PlateauExit(
-                row=lambda _: telemetry.current_row(tap, G), window=int(opts.plateau_window)
-            )
-        # heartbeat energy: the best chain's top-tier cost
-        probe = (lambda _: state.cost_vec[:, 0].min()) if tap is not None else None
-        run_one = costmodel.instrument("sa-chunk", iters=chunk, sig=sig, device=m.device)(run_one)
-        drive_chunks(run_one, None, total=n, chunk=chunk, probe=probe, plateau=plateau)
-        ladder = None
-        if n_temps > 1:
-            ladder = {
-                "nTemps": n_temps, "interval": interval, "rungSize": C // n_temps,
-                "t0": float(opts.t0), "endTemps": ladder_end_temps(opts),
-            }
-        convergence = telemetry.decode(tap, goal_names, chunk_size=chunk, budget=n, ladder=ladder)
-        if plateau is not None:
-            plateau_info = plateau.to_json(budget_chunks=(n + chunk - 1) // chunk)
+            # heartbeat energy: the best chain's top-tier cost
+            probe = (lambda _: state.cost_vec[:, 0].min()) if tap is not None else None
+            run_one = costmodel.instrument("sa-chunk", iters=chunk, sig=sig,
+                                           device=m.device)(run_one)
+            drive_chunks(run_one, None, total=n, chunk=chunk, probe=probe, plateau=plateau)
+            ladder = None
+            if n_temps > 1:
+                ladder = {
+                    "nTemps": n_temps, "interval": interval, "rungSize": C // n_temps,
+                    "t0": float(opts.t0), "endTemps": ladder_end_temps(opts),
+                }
+            convergence = telemetry.decode(tap, goal_names, chunk_size=chunk, budget=n,
+                                           ladder=ladder)
+            if plateau is not None:
+                plateau_info = plateau.to_json(budget_chunks=(n + chunk - 1) // chunk)
+    finally:
+        graphed.close()
 
     # counted on the host: no device read
     TRACER.set_attrs(engine=engine)

@@ -36,7 +36,8 @@ and each read of device data a counted host sync (``TRACER.blocked``).
 
 On a card a run's iterations after the first are replays of one CUDA
 graph: the first runs eagerly (its caches and shapes warm), the second is
-captured (``_iteration_graph``) and every later one replays it, the draws
+captured (``_iteration_graph``, ``graphs.step_graph`` under this module's
+name, the seam the tests replace) and every later one replays it, the draws
 advancing the run's Philox stream as eager launches would, so the result
 is the eager one bit for bit. The stop read, the polls, the taps and the
 heartbeats stay on the host, outside the graph. The run's phase span counts
@@ -46,8 +47,6 @@ heartbeats stay on the host, outside the graph. The run's phase span counts
 from __future__ import annotations
 
 import dataclasses
-import threading
-import time
 
 import torch
 
@@ -85,6 +84,8 @@ from ccx_torch.search.annealer import (
     propose_swap,
     real_sizes,
 )
+from ccx_torch.search.graphs import GraphedLoop
+from ccx_torch.search.graphs import step_graph as _iteration_graph
 from ccx_torch.search.state import (
     KIND_SINGLE,
     PartitionView,
@@ -390,80 +391,6 @@ def _kind_counts(ss: SearchState) -> tuple[tuple, tuple]:
     return prop, acc
 
 
-#: retired descent graphs by card index, each with its capture stream and
-#: the event that marks its last replay: a capture takes one, captures on
-#: its stream into its memory pool (``pool=retired.pool()``; the allocator
-#: reuses a freed block on the stream that freed it) and only then drops it,
-#: so a card holds as many pools as descents ever captured at once and
-#: nothing grows from run to run (a pool whose last graph is gone cannot be
-#: named again)
-_RETIRED: dict[int, list] = {}
-_RETIRED_LOCK = threading.Lock()
-
-
-class _CudaIterationGraph:
-    """One descent iteration captured as a CUDA graph and replayed. The
-    capture runs on a side stream in thread-local mode (fleet jobs launch
-    from other threads), on the stream and in the memory pool of a retired
-    graph where the card has one; ``gen`` is registered, so each replay
-    advances its Philox stream as the eager launches would. ``release``
-    retires the graph: it is never replayed again. A capture error raises."""
-
-    def __init__(self, dev: torch.device, gen: torch.Generator) -> None:
-        self.gen = gen
-        self.index = dev.index if dev.index is not None else torch.cuda.current_device()
-        self.graph = None
-        self.side = None
-
-    def capture(self, fn) -> None:
-        with torch.cuda.device(self.index):
-            with _RETIRED_LOCK:
-                free = _RETIRED.get(self.index)
-                retired = free.pop() if free else None
-            cur = torch.cuda.current_stream()
-            pool = None
-            if retired is None:
-                self.side = torch.cuda.Stream()
-            else:
-                old, self.side, done = retired
-                cur.wait_event(done)
-                pool = old.pool()
-            self.graph = torch.cuda.CUDAGraph()
-            self.graph.register_generator_state(self.gen)
-            self.side.wait_stream(cur)
-            try:
-                with torch.cuda.stream(self.side):
-                    self.graph.capture_begin(pool=pool, capture_error_mode="thread_local")
-                    try:
-                        fn()
-                    finally:
-                        self.graph.capture_end()
-                cur.wait_stream(self.side)
-            finally:
-                if retired is not None:
-                    old.reset()
-
-    def replay(self) -> None:
-        self.graph.replay()
-
-    def release(self) -> None:
-        if self.graph is None:
-            return
-        with torch.cuda.device(self.index):
-            done = torch.cuda.Event()
-            done.record()
-        with _RETIRED_LOCK:
-            _RETIRED.setdefault(self.index, []).append((self.graph, self.side, done))
-        self.graph = None
-
-
-def _iteration_graph(dev: torch.device, gen: torch.Generator):
-    """The graph that replays a descent's iterations on ``dev`` (draws from
-    ``gen``): a CUDA graph on a card; None elsewhere, where every iteration
-    runs eagerly."""
-    return _CudaIterationGraph(dev, gen) if dev.type == "cuda" else None
-
-
 def _drive_descent(iteration, ss: SearchState, goal_names, opts, dev, label: str,
                    gen: torch.Generator):
     """Run ``iteration(live) -> applied`` (int tensor, 0 where not live) to
@@ -499,24 +426,11 @@ def _drive_descent(iteration, ss: SearchState, goal_names, opts, dev, label: str
         stale.copy_(torch.where(lv, torch.where(n > 0, 0, stale + 1), stale))
         moves.add_(n)
 
-    graph = _iteration_graph(dev, gen) if opts.max_iters > 1 else None
-    counts = {"graphCaptures": 0, "graphReplays": 0, "graphCaptureSeconds": 0.0}
-    calls = 0
+    graphed = GraphedLoop(_iteration_graph(dev, gen) if opts.max_iters > 1 else None, body)
 
     def one() -> None:
-        nonlocal calls
-        calls += 1
         with TRACER.step(step):
-            if graph is None or calls == 1:
-                body()
-                return
-            if calls == 2:
-                t0 = time.perf_counter()
-                graph.capture(body)
-                counts["graphCaptureSeconds"] = time.perf_counter() - t0
-                counts["graphCaptures"] = 1
-            graph.replay()
-            counts["graphReplays"] += 1
+            graphed()
 
     convergence = None
     try:
@@ -557,9 +471,7 @@ def _drive_descent(iteration, ss: SearchState, goal_names, opts, dev, label: str
         with TRACER.blocked():
             n_moves = int(moves)
     finally:
-        if graph is not None:
-            graph.release()
-        TRACER.add_counts(**counts)
+        graphed.close()
     return n_iters, n_moves, convergence
 
 

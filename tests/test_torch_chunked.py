@@ -9,6 +9,13 @@ the states, and the plateau exit decides on the current chunk.
   graphed drives (a stand-in graph whose replay re-runs the captured
   iteration), whose span counters count one capture and a replay for every
   call after the first, and nothing at a budget of one.
+* SA graphs: a run whose steps replay a stand-in that freezes what a CUDA
+  graph's capture freezes (the recorded ops, each Python number as at the
+  capture) equals the run whose stand-in re-runs the step, for every engine,
+  one-loop and chunked, and under the ladder: no per-step value is a host
+  number the capture would keep. The span counts one capture and n - 1
+  replays, nothing at a budget of one or off a card, and a batched run's
+  counted syncs do not grow with its steps.
 * Taps: ``record``/``lex_best_row``/``decode`` equal the JAX package's on the
   same values; a descent's tap rows equal the states of runs cut at each
   chunk's end.
@@ -27,6 +34,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves, tree_map
 
 from ccx.search import telemetry as jtel
 from ccx_torch.common.tracing import TRACER
@@ -191,6 +200,148 @@ def test_a_budget_of_one_captures_no_graph(small, chunk, monkeypatch):
     opts = tgreedy.GreedyOptions(n_candidates=4, max_iters=1, seed=4, chunk_iters=chunk)
     res, counted = _counted(tgreedy.greedy_optimize, small, opts)
     assert res.n_iters == 1 and counted == (0, 0) and not made
+
+
+class _Recorded:
+    """A stand-in for an SA run's CUDA graph that freezes what a capture
+    freezes: its first replay runs the captured step under a dispatch mode
+    that records every aten op with its arguments, and every later replay
+    runs the recorded ops again, each Python number as it was at the
+    capture, on the tensors the step reads and writes (the ops' own outputs
+    made afresh). A host read inside the step raises, as on a card."""
+
+    def __init__(self, dev, gen) -> None:
+        self.fn = None
+        self.ops = None
+        self.released = False
+
+    def capture(self, fn) -> None:
+        assert self.fn is None
+        self.fn = fn
+
+    def replay(self) -> None:
+        if self.ops is None:
+            rec = _OpRecorder()
+            with rec:
+                self.fn()
+            self.ops = rec.ops
+            return
+        fresh = {}
+
+        def sub(x):
+            return fresh.get(id(x), x) if torch.is_tensor(x) else x
+
+        for func, args, kwargs, out in self.ops:
+            res = func(*tree_map(sub, args), **tree_map(sub, kwargs))
+            for o, r in zip(tree_leaves(out), tree_leaves(res)):
+                if torch.is_tensor(o):
+                    fresh[id(o)] = r
+
+    def release(self) -> None:
+        self.released = True
+
+
+class _OpRecorder(TorchDispatchMode):
+    """Runs and records each aten op (its outputs kept alive, so no id is
+    reused while the record lives)."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func is torch.ops.aten._local_scalar_dense.default:
+            raise RuntimeError("a host read inside a captured SA step")
+        out = func(*args, **kwargs)
+        self.ops.append((func, args, kwargs, out))
+        return out
+
+
+def _use_step_graphs(monkeypatch, kind) -> list:
+    """Drive every SA run through stand-in graphs of ``kind``; returns those
+    made."""
+    made = []
+
+    def make(dev, gen):
+        made.append(kind(dev, gen))
+        return made[-1]
+
+    monkeypatch.setattr(tann, "_step_graph", make)
+    return made
+
+
+#: (engine, chunk_steps): every engine one-loop and chunked, and a ladder
+SA_GRAPH_CASES = [(e, c) for e in ("batched", "sequential", "single") for c in (0, 4)] + [
+    ("ladder", 4)]
+
+
+def _sa_case(engine: str, chunk: int, wide, small):
+    """(model, options) of a graph case. The swap share ramps where swaps
+    run and the temperature decays, so a frozen per-step value changes the
+    run; the batched case uses coupled swaps (``usage_weights``)."""
+    if engine == "batched":
+        return wide, tann.AnnealOptions(n_chains=3, n_steps=9, moves_per_step=4, seed=5,
+                                        p_swap_end=0.6, chunk_steps=chunk)
+    if engine == "sequential":
+        return small, tann.AnnealOptions(n_chains=3, n_steps=14, moves_per_step=2, seed=5,
+                                         p_swap_end=0.7, chunk_steps=chunk)
+    if engine == "single":
+        return small, tann.AnnealOptions(n_chains=3, n_steps=14, moves_per_step=2, seed=5,
+                                         p_swap=0.0, chunk_steps=chunk)
+    return wide, tann.AnnealOptions(n_chains=4, n_steps=9, moves_per_step=4, seed=5,
+                                    p_swap_end=0.6, chunk_steps=chunk, n_temps=2)
+
+
+def _sa_counted(m, opts):
+    """(the SA result, its span's graph counters)."""
+    with TRACER.span("anneal") as s:
+        res = tann.anneal(m, CFG, GOALS, opts)
+    return res, (s.attrs["graphCaptures"], s.attrs["graphReplays"])
+
+
+@pytest.mark.parametrize("engine, chunk", SA_GRAPH_CASES)
+def test_graphed_sa_equals_the_eager_stand_in(wide, small, engine, chunk, monkeypatch):
+    m, opts = _sa_case(engine, chunk, wide, small)
+    runs = []
+    for kind in (_Recorded, _Replayed):
+        made = _use_step_graphs(monkeypatch, kind)
+        res, counted = _sa_counted(m, opts)
+        assert counted == (1, opts.n_steps - 1)
+        assert len(made) == 1 and made[0].released
+        runs.append(res)
+    got, ref = runs
+    assert got.engine == ref.engine == ("batched" if engine == "ladder" else engine)
+    _same_model(got.model, ref.model)
+    assert torch.equal(got.stack_after.costs, ref.stack_after.costs)
+    assert (got.best_chain, got.n_accepted, got.n_prop_kind, got.n_acc_kind) == (
+        ref.best_chain, ref.n_accepted, ref.n_prop_kind, ref.n_acc_kind)
+    assert ref.n_accepted > 0
+    if chunk:
+        assert got.convergence == ref.convergence
+
+
+@pytest.mark.parametrize("chunk", [0, 4])
+def test_an_sa_budget_of_one_captures_no_graph(small, chunk, monkeypatch):
+    made = _use_step_graphs(monkeypatch, _Replayed)
+    opts = tann.AnnealOptions(n_chains=2, n_steps=1, seed=5, chunk_steps=chunk)
+    res, counted = _sa_counted(small, opts)
+    assert res.n_steps == 1 and counted == (0, 0) and not made
+
+
+def test_sa_graph_counters_read_zero_off_a_card(small):
+    res, counted = _sa_counted(small, tann.AnnealOptions(n_chains=2, n_steps=6, seed=5))
+    assert counted == (0, 0) and res.n_steps == 6
+
+
+def test_batched_sa_syncs_do_not_grow_with_the_steps(wide):
+    syncs = []
+    for n in (2, 8):
+        opts = tann.AnnealOptions(n_chains=2, n_steps=n, moves_per_step=4, seed=5)
+        with TRACER.span("anneal") as s:
+            assert tann.anneal(wide, CFG, GOALS, opts).engine == "batched"
+        syncs.append(s.to_json()["syncs"]["total"])
+    assert syncs[0] == syncs[1], syncs
 
 
 def test_descent_tap_rows_equal_the_cut_runs(small):

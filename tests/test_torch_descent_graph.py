@@ -22,7 +22,7 @@ from ccx_torch.common.tracing import TRACER
 from ccx_torch.goals.base import GoalConfig
 from ccx_torch.goals.stack import DEFAULT_GOAL_ORDER
 from ccx_torch.model.fixtures import RandomClusterSpec, random_cluster
-from ccx_torch.search import greedy
+from ccx_torch.search import graphs, greedy
 
 CFG = GoalConfig()
 GOALS = DEFAULT_GOAL_ORDER
@@ -91,7 +91,7 @@ def test_descent_graphs_do_not_outlive_their_runs(monkeypatch):
     made = []
 
     def spy(d, gen):
-        made.append(greedy._CudaIterationGraph(d, gen))
+        made.append(graphs.CudaStepGraph(d, gen))
         return made[-1]
 
     monkeypatch.setattr(greedy, "_iteration_graph", spy)

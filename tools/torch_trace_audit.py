@@ -215,7 +215,7 @@ def split(res: dict, busy) -> dict:
             out["calls"] = n["calls"]
         else:
             out["busy_s"] = busy_in(busy, starts, n["startNs"], n["endNs"])
-        # the descents' graph counters (PERF.md §3)
+        # the descents' and the anneal's graph counters (PERF.md §3)
         out.update({k: v for k, v in (n.get("attrs") or {}).items() if k.startswith("graph")})
         return out
 
