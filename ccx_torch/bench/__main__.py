@@ -116,18 +116,15 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO, stream=sys.stderr)
 
-    import torch
-
     from ccx_torch.bench import ab, ladder, runs, serving
-    from ccx_torch.device import ensure_responsive_backend, resolve_device
+    from ccx_torch.device import ensure_responsive_backend, resolve_device, synchronize
 
     device = resolve_device(args.device)
     if device.type == "cuda":
         ensure_responsive_backend()
     if args.ladder:
         lines = ladder.run_ladder(args.ladder, args.samples, device=device)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        synchronize(device)
         print(json.dumps(lines[-1]), flush=True)
         return 0 if all(ln["verified"] for ln in lines) else 1
     if args.scaling:
@@ -163,8 +160,7 @@ def main(argv=None) -> int:
                           replan_iters=args.replan_iters)
     else:
         out = ab.run_exchange_ab(args.exchange_ab, device=device)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    synchronize(device)
     print(json.dumps(out), flush=True)
     return 0 if out["verified"] else 1
 

@@ -70,7 +70,7 @@ from ccx_torch.bench.runs import device_line
 from ccx_torch.common import compilestats
 from ccx_torch.common.convergence import lex_improved, plateau_chunk
 from ccx_torch.common.resources import Resource
-from ccx_torch.device import resolve_device
+from ccx_torch.device import resolve_device, synchronize
 from ccx_torch.goals.base import GoalConfig
 from ccx_torch.goals.stack import DEFAULT_GOAL_ORDER
 from ccx_torch.model.fixtures import RandomClusterSpec, bench_spec, random_cluster
@@ -125,11 +125,6 @@ def exchange_knobs() -> dict:
         "interval": _env("CCX_EXCHANGE_INTERVAL", 1),
         "seed": _env("CCX_EXCHANGE_SEED", 17),
     }
-
-
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
 
 
 #: the plan A/B's brief of a plan: these keys of ``MovementPlan.summary_json``
@@ -223,7 +218,7 @@ def run_plan(name: str = "B5", evac_name: str = "B3", evac_windows: int = 4, *, 
     n0 = agg_op.LAUNCHES
     t0 = time.monotonic()
     res = optimize(m0, cfg, goal_names, oopts)
-    _sync(dev)
+    synchronize(dev)
     cold_s = time.monotonic() - t0
     launches["cold"] = agg_op.LAUNCHES - n0
     bytes_pp = _disk_bytes(m0)
@@ -416,7 +411,7 @@ def run_exchange_ab(name: str = "B3", *, device=None, model: TensorClusterModel 
         n0 = agg_op.LAUNCHES
         t0 = time.monotonic()
         r = anneal(m, cfg, goal_names, opts)
-        _sync(dev)
+        synchronize(dev)
         return r, time.monotonic() - t0, agg_op.LAUNCHES - n0
 
     with telemetry.taps(True):

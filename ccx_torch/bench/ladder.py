@@ -58,7 +58,7 @@ import torch
 
 from ccx_torch.bench.runs import device_line
 from ccx_torch.common import compilestats, vmesh
-from ccx_torch.device import resolve_device
+from ccx_torch.device import resolve_device, synchronize
 from ccx_torch.goals.base import GoalConfig
 from ccx_torch.goals.stack import DEFAULT_GOAL_ORDER
 from ccx_torch.model.fixtures import RandomClusterSpec, bench_spec, random_cluster
@@ -103,11 +103,6 @@ def ladder_rungs(name: str) -> list[str]:
     if all(os.environ.get(k) for k in EFFORT_KNOBS):
         return ["custom"]
     return (["target"] if name == "B5" else []) + ["lean", "full"]
-
-
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
 
 
 def local_summary(res) -> dict:
@@ -259,11 +254,11 @@ def run_config(name: str, rung: str, samples: int = 1, *, device=None,
         def one_run(label: str) -> tuple[float, dict]:
             if wire is not None:
                 out = wire.propose(goal_names, wire_options(opts), label)
-                _sync(dev)
+                synchronize(dev)
                 return out
             t0 = time.monotonic()
             res = optimize(m, cfg, goal_names, opts)
-            _sync(dev)
+            synchronize(dev)
             return time.monotonic() - t0, local_summary(res)
 
         cs0, n0 = compilestats.snapshot(), agg_op.LAUNCHES
@@ -373,14 +368,14 @@ def run_scaling(name: str = "B6", samples: int = 1, *, device=None,
                 label = f"{cx}x{px}"
                 t0 = time.monotonic()
                 anneal(m, cfg, DEFAULT_GOAL_ORDER, opts, mesh=mesh)
-                _sync(dev)
+                synchronize(dev)
                 cold = time.monotonic() - t0
                 walls = []
                 l0 = agg_op.LAUNCHES
                 for _ in range(max(samples, 1)):
                     t0 = time.monotonic()
                     r = anneal(m, cfg, DEFAULT_GOAL_ORDER, opts, mesh=mesh)
-                    _sync(dev)
+                    synchronize(dev)
                     walls.append(time.monotonic() - t0)
                 launches[label] = agg_op.LAUNCHES - l0
                 w = statistics.median(walls)
@@ -455,11 +450,11 @@ def run_mesh_bench(name: str = "B5", *, device=None, spec: RandomClusterSpec | N
             for n in (lo, hi):
                 opts = AnnealOptions(n_chains=8, n_steps=n, moves_per_step=8, seed=3, batched=True)
                 fn(m, cfg, DEFAULT_GOAL_ORDER, opts, *extra)
-                _sync(dev)
+                synchronize(dev)
                 l0 = agg_op.LAUNCHES
                 t0 = time.monotonic()
                 r = fn(m, cfg, DEFAULT_GOAL_ORDER, opts, *extra)
-                _sync(dev)
+                synchronize(dev)
                 walls[n] = time.monotonic() - t0
                 launches[n] = agg_op.LAUNCHES - l0
                 results[(fn.__name__, n)] = r

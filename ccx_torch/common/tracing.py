@@ -10,10 +10,10 @@ thread; a completed root span's tree is exported as ``OptimizerResult.
 span_tree`` (and with it the sidecar result) and as per-phase/per-RPC
 Prometheus histograms in ``ccx_torch.common.metrics``. Timing is host
 wall-clock by default; with ``sync`` on (``CCX_TRACE_SYNC=1``) every span
-close that names a CUDA ``device`` first runs ``torch.cuda.synchronize``
-on it, trading the launch queue's overlap for device-honest per-phase
-walls. A failing synchronize raises: a lost device must not be read as a
-fast phase.
+close that names a CUDA ``device`` first drains it
+(``ccx_torch.device.synchronize``), trading the launch queue's overlap for
+device-honest per-phase walls. A failing synchronize raises: a lost device
+must not be read as a fast phase.
 
 **Ids and the clock.** Every span has a ``spanId`` and its parent's
 ``parentId``, and carries its request's ``requestId``: a root takes it
@@ -101,17 +101,6 @@ RECORDER_VERSION = 1
 ENV_RECORDER = "CCX_FLIGHT_RECORDER"
 ENV_WATCHDOG = "CCX_WATCHDOG_SECONDS"
 ENV_SYNC = "CCX_TRACE_SYNC"
-
-
-def _device_sync(device) -> None:
-    """Wait for every kernel queued on ``device`` (a CUDA ``torch.device``;
-    anything else has nothing to drain; ``ccx_torch.device.synchronize``).
-    A failing synchronize raises."""
-    if device is None or getattr(device, "type", None) != "cuda":
-        return
-    from ccx_torch.device import synchronize
-
-    synchronize(device)
 
 
 #: span ids, process-wide (``next`` on a count is atomic under the GIL)
@@ -462,8 +451,10 @@ class Tracer:
             return
         try:
             if self.sync and getattr(span.device, "type", None) == "cuda":
+                from ccx_torch.device import synchronize
+
                 with self.blocked():
-                    _device_sync(span.device)
+                    synchronize(span.device)
         finally:
             self._close(span)
 

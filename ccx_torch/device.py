@@ -18,7 +18,7 @@ The probe child is sent SIGTERM with a grace period and only then killed,
 and reaping is bounded, so a child stuck in device I/O cannot hang the
 caller.
 
-``synchronize`` is the search's device-wide synchronize: it waits out a
+``synchronize`` is the port's one device-wide synchronize: it waits out a
 CUDA graph capture that another thread (a fleet job) has under way.
 """
 
@@ -53,8 +53,12 @@ CAPTURE_LOCK = threading.Lock()
 
 
 def synchronize(device: torch.device) -> None:
-    """Wait for every kernel queued on the CUDA ``device``; never while
-    another thread captures a graph (``CAPTURE_LOCK``)."""
+    """Wait for every kernel queued on ``device``, never while another
+    thread captures a graph (``CAPTURE_LOCK``); a device that is not CUDA
+    has nothing to drain and returns at once. The port's one
+    ``torch.cuda.synchronize``: a failing one raises."""
+    if device.type != "cuda":
+        return
     with CAPTURE_LOCK:
         torch.cuda.synchronize(device)
 

@@ -47,7 +47,6 @@ import dataclasses
 import logging
 from collections import OrderedDict
 
-import numpy as np
 import torch
 
 from ccx_torch.common import costmodel
@@ -427,13 +426,9 @@ def sharded_stack_eval(
 # --------------------------------------------------------------------------
 
 
-def _rows_of(d, lo: int, hi: int, device):
-    """Rows ``lo:hi`` of every tensor of a draws dataclass, on ``device``."""
-    return _tree_map(lambda t: t[lo:hi].to(device), d)
-
-
 class _ChainRank:
-    """One chain rank of a sharded run: the replicated state of chains
+    """One chain rank of a sharded run, a chain group of the annealer's
+    driver (``annealer.ChainGroup``): the replicated state of chains
     ``lo:hi`` on the rank's lead device, and its placement rows per parts
     rank. ``gather`` and ``place`` are the step functions' hooks: the owner
     gather of a drawn partition's view (masked on non-owners, psummed) and
@@ -499,8 +494,11 @@ class _ChainRank:
         self.evac = evac.to(dev)
         #: the step function's keyword arguments on the lead block
         self.kw = step_kwargs(lead, cfg, goal_names, pp, engine, moves, self.group)
-        if engine == "single":
-            self.kw.pop("moves_per_step")
+
+    def draws(self, d, per_chain: int):
+        """This rank's rows of the draws made for every chain of the run
+        (``per_chain`` rows a chain), on its lead device."""
+        return _tree_map(lambda t: t[self.lo * per_chain:self.hi * per_chain].to(self.device), d)
 
     def _own(self, ps: torch.Tensor, off: int, dev):
         p = ps.to(dev).long()
@@ -589,25 +587,24 @@ def sharded_anneal(
     replicated per chain and updated identically, so nothing is ever
     resynchronized.
 
-    With ``opts.chunk_steps > 0`` the run is chunk-driven through
-    ``annealer.drive_chunks``: one heartbeat per chunk, the convergence
-    taps and the plateau exit (``plateau_window``) as in the unsharded
-    chunk engine. ``chunk_steps == 0`` runs one loop (the parity
-    reference). The replica-exchange ladder is not carried (``n_temps >
-    1`` runs flat, logged, as in JAX). ``opts.n_chains`` is rounded up to a
-    multiple of the mesh's chain ranks (logged). ``evac`` is an optional
-    precomputed hot list, as for ``anneal``.
+    The run is the annealer's one driver (``annealer._run_groups``) over
+    the chain ranks (``_ChainRank``), eager: with ``opts.chunk_steps > 0``
+    chunk-driven through ``annealer.drive_chunks`` (one heartbeat per
+    chunk, the convergence taps and the plateau exit), ``chunk_steps == 0``
+    one loop (the parity reference); ``engine``, ``subSteps`` and the
+    ``sa-step`` spans land under the ``sharded-anneal`` span. The
+    replica-exchange ladder is not carried (``n_temps > 1`` runs flat,
+    logged, as in JAX). ``opts.n_chains`` is rounded up to a multiple of
+    the mesh's chain ranks (logged). ``evac`` is an optional precomputed
+    hot list, as for ``anneal``.
 
-    The step engines, draws and acceptance are the unsharded annealer's, so
-    the result differs from ``anneal``'s on the same seed only where the
+    The result differs from ``anneal``'s on the same seed only where the
     psummed starting aggregates differ in float order. The winner is the
     lexicographic argmin across every chain; its placement is joined onto
     the input model's device and its stack re-evaluated from scratch."""
     from ccx_torch.common.tracing import TRACER
-    from ccx_torch.goals.stack import evaluate_stack
     from ccx_torch.search import annealer as sa
     from ccx_torch.search import telemetry
-    from ccx_torch.search.state import make_topic_group, max_partitions_per_topic, stack_needs_topic
 
     if opts is None:
         opts = sa.AnnealOptions()
@@ -626,128 +623,28 @@ def sharded_anneal(
     if C != opts.n_chains:
         opts = dataclasses.replace(opts, n_chains=C)
 
-    stack_before = evaluate_stack(m, cfg, goal_names)
-    p_real, b_real = sa.real_sizes(m)
-    evac_idx, n_evac = evac if evac is not None else sa.hot_partition_list(m, goal_names, cfg)
-    n_evac = int(n_evac)
-    pp = sa.proposal_params(opts, goal_names, cfg, p_real, b_real)
-    schedule_on = pp.allow_inter and opts.p_swap_end >= 0
-    engine = sa.step_engine(opts, pp, m.R, schedule_on)
-    moves = max(opts.moves_per_step, 1)
-    needs_topic = stack_needs_topic(goal_names)
-    group = make_topic_group(m, max_partitions_per_topic(m)) if needs_topic else None
-
-    sm = shard_model(m, mesh)
-    struct = _struct_key(sm)
-    _plan(_RUN_CACHE, ("init", mesh.key, tuple(goal_names), cfg, needs_topic, struct), mesh, m.P)
-    ranks = costmodel.instrument("sharded-chain-init", sig=struct + (C, n_chain_ranks),
-                                 device=sm.device)(_start_ranks)(
-        sm, C, cfg, tuple(goal_names), group, evac_idx, pp, engine, moves)
-    m_draw = ranks[0].lead
-    gen = torch.Generator(device=m_draw.device)
-    gen.manual_seed(opts.seed)
-    n = max(opts.n_steps, 1)
-    decay = (opts.t1 / opts.t0) ** (1.0 / max(n - 1, 1))
-    ramp = sa._swap_ramp_of(opts, n)
-
-    def run_steps(lo: int, hi: int) -> None:
-        for t in range(lo, hi):
-            temp = opts.t0 * decay**t
-            share = pp.p_swap + ramp * t
-            if engine == "batched":
-                d = sa.draw_batched(gen, C, moves, m_draw, pp, n_evac)
-                for r in ranks:
-                    sa._anneal_step_batched(
-                        r.state, _rows_of(d, r.lo * moves, r.hi * moves, r.device), temp, share,
-                        r.evac, n_evac, **r.kw, gather=r.gather, place=r.place)
-                continue
-            for _ in range(moves):
-                if engine == "single":
-                    d = sa.draw_single_move(gen, C, m_draw, pp, n_evac)
-                    for r in ranks:
-                        sa._single_move(r.state, _rows_of(d, r.lo, r.hi, r.device), temp, r.evac,
-                                        n_evac, **r.kw, gather=r.gather, place=r.place)
-                else:
-                    d = sa.draw_unified(gen, C, m_draw, pp, n_evac)
-                    for r in ranks:
-                        sa._unified_move(r.state, _rows_of(d, r.lo, r.hi, r.device), temp, share,
-                                         r.evac, n_evac, **r.kw, gather=r.gather, place=r.place)
-
-    def all_chains(field: str) -> torch.Tensor:
-        return torch.cat([getattr(r.state, field).to(m_draw.device) for r in ranks])
-
-    sig = costmodel.signature(ranks[0].state, engine, moves, opts.chunk_steps, n_chain_ranks,
-                              n_parts)
-    convergence = plateau_info = None
-    with TRACER.span("sharded-anneal", chains=C, steps=opts.n_steps, chunkSteps=opts.chunk_steps,
-                     meshChains=n_chain_ranks, meshParts=n_parts):
+    def chain_ranks(group, evac_idx, pp, engine, moves) -> list[_ChainRank]:
+        needs_topic = group is not None
+        sm = shard_model(m, mesh)
+        struct = _struct_key(sm)
+        _plan(_RUN_CACHE, ("init", mesh.key, tuple(goal_names), cfg, needs_topic, struct),
+              mesh, m.P)
+        ranks = costmodel.instrument("sharded-chain-init", sig=struct + (C, n_chain_ranks),
+                                     device=sm.device)(_start_ranks)(
+            sm, C, cfg, tuple(goal_names), group, evac_idx, pp, engine, moves)
         if opts.chunk_steps <= 0:
             _plan(_RUN_CACHE, ("run", mesh.key, tuple(goal_names), cfg, pp, engine,
                                opts.n_steps, opts.t0, opts.t1, moves, opts.p_swap_end,
                                needs_topic, struct), mesh, m.P)
-            costmodel.instrument("sharded-sa-monolith", iters=opts.n_steps, sig=sig,
-                                 device=m_draw.device)(run_steps)(0, opts.n_steps)
         else:
             chunk = int(opts.chunk_steps)
-            G = len(goal_names)
-            taps_on = telemetry.enabled()
+            schedule_on = pp.allow_inter and opts.p_swap_end >= 0
             _plan(_RUN_CACHE, ("chunk", mesh.key, tuple(goal_names), cfg, pp, engine, opts.t0,
-                               moves, schedule_on, needs_topic, chunk, taps_on, struct),
-                  mesh, m.P, config=(engine, moves, chunk))
-            tap = telemetry.make_tap(G, m_draw.device) if taps_on else None
+                               moves, schedule_on, needs_topic, chunk, telemetry.enabled(),
+                               struct), mesh, m.P, config=(engine, moves, chunk))
+        return ranks
 
-            def run_one(carry, off):
-                # steps at or past the budget are inert: never run, never drawn
-                run_steps(off, min(off + chunk, opts.n_steps))
-                if tap is not None:
-                    t_last = max(min(off + chunk, n) - 1, 0)
-                    telemetry.record(
-                        tap, telemetry.lex_best_row(all_chains("cost_vec")),
-                        all_chains("n_prop_kind").sum(0), all_chains("n_acc_kind").sum(0),
-                        opts.t0 * decay**t_last,
-                    )
-                return carry, None
-
-            plateau = None
-            if opts.plateau_window > 0 and tap is not None:
-                plateau = sa.PlateauExit(row=lambda _: telemetry.current_row(tap, G),
-                                         window=int(opts.plateau_window))
-            probe = (lambda _: all_chains("cost_vec")[:, 0].min()) if tap is not None else None
-            run_one = costmodel.instrument("sharded-sa-chunk", iters=chunk, sig=sig,
-                                           device=m_draw.device)(run_one)
-            sa.drive_chunks(run_one, None, total=n, chunk=chunk, probe=probe, plateau=plateau)
-            convergence = telemetry.decode(tap, goal_names, chunk_size=chunk, budget=n)
-            if plateau is not None:
-                plateau_info = plateau.to_json(budget_chunks=(n + chunk - 1) // chunk)
-    return _finish_sharded_anneal(m, ranks, cfg, goal_names, opts, stack_before, engine,
-                                  convergence=convergence, plateau=plateau_info)
-
-
-def _finish_sharded_anneal(m, ranks, cfg, goal_names, opts, stack_before, engine,
-                           convergence=None, plateau=None):
-    """The lexicographic argmin across every chain; its placement joined
-    onto ``m``'s device and its stack evaluated from scratch."""
-    from ccx_torch.goals.stack import evaluate_stack
-    from ccx_torch.search.annealer import AnnealResult, best_chain_index
-
-    cvs = np.concatenate([r.state.cost_vec.cpu().numpy() for r in ranks])
-    best = best_chain_index(cvs)
-    owner = next(r for r in ranks if r.lo <= best < r.hi)
-    assignment, leader_slot, replica_disk = owner.placement(best, m.device)
-    result_model = m.replace(assignment=assignment, leader_slot=leader_slot,
-                             replica_disk=replica_disk)
-    i = best - owner.lo
-    return AnnealResult(
-        model=result_model,
-        stack_before=stack_before,
-        stack_after=evaluate_stack(result_model, cfg, goal_names),
-        n_accepted=int(owner.state.n_accepted[i]),
-        n_chains=opts.n_chains,
-        n_steps=opts.n_steps,
-        best_chain=best,
-        n_prop_kind=tuple(owner.state.n_prop_kind[i].tolist()),
-        n_acc_kind=tuple(owner.state.n_acc_kind[i].tolist()),
-        engine=engine,
-        convergence=convergence,
-        plateau=plateau,
-    )
+    with TRACER.span("sharded-anneal", chains=C, steps=opts.n_steps, chunkSteps=opts.chunk_steps,
+                     meshChains=n_chain_ranks, meshParts=n_parts):
+        return sa._run_groups(m, cfg, goal_names, opts, evac, chain_ranks, prefix="sharded-",
+                              sig_extra=(n_chain_ranks, n_parts))

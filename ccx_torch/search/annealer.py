@@ -37,8 +37,13 @@ chains between temperature rungs at chunk boundaries
 (``exchange_permutation``). Chunking draws nothing and changes no step, so a
 chunked run with ``n_temps=1`` equals the one-loop run exactly.
 
-On a card a run's steps after the first are replays of one CUDA graph
-(``graphs.GraphedLoop`` through ``_step_graph``, the seam the tests
+One driver (``_run_groups``) runs every SA run over chain groups
+(``ChainGroup``): the one-card run is one group over all chains; the
+partition-sharded engine's chain ranks (``ccx_torch.parallel.sharding``)
+are groups whose placement rows live in the model's blocks.
+
+On a card a one-card run's steps after the first are replays of one CUDA
+graph (``graphs.GraphedLoop`` through ``_step_graph``, the seam the tests
 replace), across chunk boundaries: the first step runs eagerly, the second
 is captured, and every later one replays it, the draws advancing the run's
 Philox stream as eager launches would. Such a run writes each step's
@@ -93,7 +98,6 @@ from ccx_torch.search.state import (
     stack_needs_topic,
     usage_weights,
     view_rows,
-    with_placement,
 )
 
 # Move kinds (ref ActionType).
@@ -802,29 +806,6 @@ def _single_move(
     bump_kind_counters(state, chains, KIND_SINGLE, 1, accept)
 
 
-def _anneal_step(
-    state: SearchState,
-    gen: torch.Generator,
-    temperature: float | torch.Tensor | DeviceTemperature,
-    evac: torch.Tensor,
-    n_evac: int,
-    *,
-    m: TensorClusterModel,
-    pp: ProposalParams,
-    hard_arr: torch.Tensor,
-    weights: torch.Tensor,
-    moves_per_step: int,
-    scorer,
-    group,
-) -> None:
-    """``moves_per_step`` sequential proposals on every chain at once: each
-    scores against the state the previous one left."""
-    for _ in range(moves_per_step):
-        d = draw_single_move(gen, state.n_chains, m, pp, n_evac)
-        _single_move(state, d, temperature, evac, n_evac, m=m, pp=pp, hard_arr=hard_arr,
-                     weights=weights, scorer=scorer, group=group)
-
-
 @dataclasses.dataclass
 class UnifiedDraws:
     """Draws of one proposal per chain of the sequential two-partition
@@ -1259,7 +1240,7 @@ def step_kwargs(
         group=group,
     )
     if engine == "single":
-        kw.update(moves_per_step=moves, scorer=make_move_scorer(m, goal_names, cfg))
+        kw.update(scorer=make_move_scorer(m, goal_names, cfg))
     else:
         kw.update(swap_scorer=make_swap_scorer(m, goal_names, cfg))
     if engine == "batched":
@@ -1579,87 +1560,91 @@ def round_up_chains(n_chains: int, ranks: int, where: str, n_temps: int = 1) -> 
 _chain_init = costmodel.instrument("chain-init")(init_search_state)
 
 
-def anneal(
+@dataclasses.dataclass
+class ChainGroup:
+    """Chains ``[lo, hi)`` of one run: their search state, the hot list and
+    the step functions' keyword arguments on the group's device, and the
+    hooks the step functions read and write the chains' placement rows
+    through (``gather``/``place``). The one-card run is one group over every
+    chain, its rows the state's own; ``sharding._ChainRank`` is a
+    partition-sharded group, its rows kept in the model's blocks."""
+
+    state: SearchState
+    lo: int
+    hi: int
+    evac: torch.Tensor
+    kw: dict
+    gather: object = gather_views
+    place: object = None
+
+    def draws(self, d, per_chain: int):
+        """This group's rows of the draws made for every chain of the run:
+        all of them, as they are."""
+        return d
+
+    def placement(self, chain: int, device) -> tuple[torch.Tensor, ...]:
+        """Copies of chain ``chain``'s (global index) rows."""
+        s, i = self.state, chain - self.lo
+        return s.assignment[i].clone(), s.leader_slot[i].clone(), s.replica_disk[i].clone()
+
+
+def _run_groups(
     m: TensorClusterModel,
-    cfg: GoalConfig = GoalConfig(),
-    goal_names: tuple[str, ...] = DEFAULT_GOAL_ORDER,
-    opts: AnnealOptions = AnnealOptions(),
-    evac: tuple[torch.Tensor, int | torch.Tensor] | None = None,
-    mesh=None,
+    cfg: GoalConfig,
+    goal_names: tuple[str, ...],
+    opts: AnnealOptions,
+    evac,
+    make_groups,
+    *,
+    prefix: str = "",
+    sig_extra: tuple = (),
 ) -> AnnealResult:
-    """Run SA on ``opts.n_chains`` chains and return the best chain's
-    placement as a new model.
+    """The one SA driver, of the one-card and the partition-sharded run:
+    the run's start (the stack before, the hot list, the topic group, the
+    proposal knobs and the step engine), then the run over the chain groups
+    ``make_groups(group, evac, pp, engine, moves)`` returns (``ChainGroup``s,
+    or groups with the same fields and methods, covering chains ``[0,
+    opts.n_chains)`` in order).
 
-    Chains never accept hard-cost-increasing moves and the temperature ends
-    near zero; the winner is the lexicographic argmin of the cost vectors.
-    The returned stack scores are re-evaluated from scratch. ``evac`` is an
-    optional precomputed hot list (``hot_partition_list`` or
-    ``hot_partition_list_device``; a tensor count is read once here).
-
-    ``chunk_steps > 0`` runs the steps in chunks (module docstring); the
-    ladder rounds ``n_chains`` up to a multiple of ``n_temps``.
-
-    With ``mesh`` (``ccx_torch.parallel.sharding.Mesh``) a ``parts`` axis
-    greater than 1 that divides the padded P hands the whole run to the
-    partition-axis-sharded engine (``sharding.sharded_anneal``: the same
-    draws, steps and acceptance rule, and with ``chunk_steps > 0`` the same
-    chunk drive). Otherwise the chains ride the mesh as data parallelism:
-    ``n_chains`` is rounded up to a multiple of the mesh's size (logged)
-    and the chains run on the model's device, which on the virtual mesh is
-    every logical device's physical one.
-
-    The innermost open span gets the attribute ``engine`` (``step_engine``)
-    and the counters ``subSteps``: the proposal applications the run made,
-    steps x ``moves_per_step`` on the sequential engine and steps on the
-    others, and ``graphCaptures``, ``graphReplays``, ``graphCaptureSeconds``
-    (module docstring; 0 off a card, and on one a run of n >= 2 steps counts
-    1 capture and n - 1 replays). The sharded engine sets none of them."""
-    if mesh is not None:
-        parts = mesh.shape.get("parts", 1)
-        if parts > 1:
-            if m.P % parts == 0:
-                from ccx_torch.parallel.sharding import sharded_anneal
-
-                return sharded_anneal(m, cfg, goal_names, opts, mesh, evac=evac)
-            logging.getLogger(__name__).warning(
-                "anneal: padded P=%d not divisible by mesh parts=%d; running chains-only data "
-                "parallelism over the %d devices", m.P, parts, mesh.size,
-            )
+    Each step's draws are made once for every chain on the lead group's
+    model, in the engines' order, and each group takes its rows of them.
+    The schedule, the chunk drive (taps and probe over every group's
+    chains, the plateau exit, and the ladder's exchange, which needs one
+    group), the ``sa-step`` spans, the innermost open span's ``engine``
+    and counters, and the finish (the lexicographic argmin over every
+    chain, the owner group's placement, counted host reads) are the same
+    for all. One group with its state's own rows replays its steps as a
+    CUDA graph on a card (module docstring); a partition-sharded group, or
+    several groups, run eagerly. ``prefix`` and ``sig_extra`` name the
+    run's sites on the cost ledger."""
     stack_before = evaluate_stack(m, cfg, goal_names)
     p_real, b_real = real_sizes(m)
     evac_idx, n_evac = evac if evac is not None else hot_partition_list(m, goal_names, cfg)
     if torch.is_tensor(n_evac):
         with TRACER.blocked():
             n_evac = int(n_evac)
-    else:
-        n_evac = int(n_evac)
+    n_evac = int(n_evac)
     group = (
         make_topic_group(m, max_partitions_per_topic(m)) if stack_needs_topic(goal_names) else None
     )
     pp = proposal_params(opts, goal_names, cfg, p_real, b_real)
+    engine = step_engine(opts, pp, m.R, pp.allow_inter and opts.p_swap_end >= 0)
+    moves = max(opts.moves_per_step, 1)
+    groups = make_groups(group, evac_idx, pp, engine, moves)
+    lead = groups[0].kw["m"]
+    dev = lead.device
+    one = len(groups) == 1
+    state = groups[0].state
+    C = opts.n_chains
     chunked = opts.chunk_steps > 0
     n_temps = max(int(opts.n_temps), 1) if chunked else 1
-    if opts.n_temps > 1 and not chunked:
-        logging.getLogger(__name__).warning(
-            "anneal: n_temps=%d needs chunk_steps > 0 (exchange runs at chunk boundaries); "
-            "the one-loop run stays flat", opts.n_temps,
-        )
-    C = opts.n_chains
-    if mesh is not None or n_temps > 1:
-        C = round_up_chains(C, mesh.size if mesh is not None else 1, "anneal", n_temps=n_temps)
-    state = _chain_init(m, cfg, goal_names, group=group, n_chains=C)
-    gen = torch.Generator(device=m.device)
+    assert one or n_temps == 1, "the replica-exchange ladder needs one chain group"
+    gen = torch.Generator(device=dev)
     gen.manual_seed(opts.seed)
     n = max(opts.n_steps, 1)
     decay = (opts.t1 / opts.t0) ** (1.0 / max(n - 1, 1))
     ramp = _swap_ramp_of(opts, n)
-    schedule_on = pp.allow_inter and opts.p_swap_end >= 0
-    engine = step_engine(opts, pp, m.R, schedule_on)
-    moves = max(opts.moves_per_step, 1)
-    kw = step_kwargs(m, cfg, goal_names, pp, engine, moves, group)
-    frac = (
-        torch.from_numpy(ladder_fracs(n_temps, C)).to(m.device) if n_temps > 1 else None
-    )
+    frac = torch.from_numpy(ladder_fracs(n_temps, C)).to(dev) if n_temps > 1 else None
 
     def temperature(t: int):
         if frac is None:
@@ -1667,17 +1652,27 @@ def anneal(
         return opts.t0 * torch.pow(torch.full_like(frac, decay), t * frac)
 
     def step(temp, share) -> None:
-        if engine == "single":
-            _anneal_step(state, gen, temp, evac_idx, n_evac, **kw)
-        elif engine == "batched":
-            d = draw_batched(gen, C, moves, m, pp, n_evac)
-            _anneal_step_batched(state, d, temp, share, evac_idx, n_evac, **kw)
-        else:
-            for _ in range(moves):
-                d = draw_unified(gen, C, m, pp, n_evac)
-                _unified_move(state, d, temp, share, evac_idx, n_evac, **kw)
+        if engine == "batched":
+            d = draw_batched(gen, C, moves, lead, pp, n_evac)
+            for g in groups:
+                _anneal_step_batched(g.state, g.draws(d, moves), temp, share, g.evac, n_evac,
+                                     **g.kw, gather=g.gather, place=g.place)
+            return
+        for _ in range(moves):
+            if engine == "single":
+                d = draw_single_move(gen, C, lead, pp, n_evac)
+                for g in groups:
+                    _single_move(g.state, g.draws(d, 1), temp, g.evac, n_evac, **g.kw,
+                                 gather=g.gather, place=g.place)
+            else:
+                d = draw_unified(gen, C, lead, pp, n_evac)
+                for g in groups:
+                    _unified_move(g.state, g.draws(d, 1), temp, share, g.evac, n_evac, **g.kw,
+                                  gather=g.gather, place=g.place)
 
-    graph = _step_graph(m.device, gen) if opts.n_steps > 1 else None
+    # a partition-sharded group (a place hook of its own) runs eagerly
+    graphable = one and groups[0].place is None and opts.n_steps > 1
+    graph = _step_graph(dev, gen) if graphable else None
     if graph is None:
         # eager steps take the schedule's values as host floats
         now = 0
@@ -1692,7 +1687,7 @@ def anneal(
         # every step of a graphed run, the eager first one too, reads the
         # schedule from device scalars written before it, which a capture
         # does not freeze; a ladder's temperatures come from the step index
-        f32 = dict(dtype=torch.float32, device=m.device)
+        f32 = dict(dtype=torch.float32, device=dev)
         at, share = torch.zeros((), **f32), torch.zeros((), **f32)
         flat = DeviceTemperature(torch.zeros((), **f32))
 
@@ -1717,21 +1712,28 @@ def anneal(
                 write(t)
                 graphed()
 
+    def chains(field: str) -> torch.Tensor:
+        """``field`` of every chain of the run, on the lead device."""
+        if one:
+            return getattr(state, field)
+        return torch.cat([getattr(g.state, field).to(dev) for g in groups])
+
     convergence = plateau_info = None
     # the cost ledger's signature of this run's chunk: the state's shapes
     # and the step's engine and sizes (never the budget or the seed)
-    sig = costmodel.signature(state, engine, moves, n_temps, opts.chunk_steps)
+    sig = costmodel.signature(state, engine, moves, n_temps, opts.chunk_steps, *sig_extra)
     try:
         if not chunked:
-            costmodel.instrument("sa-monolith", iters=opts.n_steps, sig=sig, device=m.device)(
+            costmodel.instrument(prefix + "sa-monolith", iters=opts.n_steps, sig=sig, device=dev)(
                 run_steps)(0, opts.n_steps)
         else:
             from ccx_torch.search import telemetry
 
             chunk = int(opts.chunk_steps)
             G = len(goal_names)
-            tap = telemetry.make_tap(G, m.device) if telemetry.enabled() else None
+            tap = telemetry.make_tap(G, dev) if telemetry.enabled() else None
             interval = max(int(opts.exchange_interval), 1)
+            kw = groups[0].kw
             ex_kw = {}
             if n_temps > 1:
                 ex_kw = dict(n_temps=n_temps, hard_arr=kw["hard_arr"], weights=kw["weights"])
@@ -1744,7 +1746,7 @@ def anneal(
                 ex_att = ex_acc = None
                 chunk_ord = off // chunk
                 if n_temps > 1 and (chunk_ord + 1) % interval == 0 and off < n:
-                    u = draw_exchange(gen, C, m.device)
+                    u = draw_exchange(gen, C, dev)
                     perm, ex_att, ex_acc = exchange_permutation(
                         state.cost_vec, temperature(t_last), u,
                         parity=(chunk_ord // interval) % 2, **ex_kw,
@@ -1752,8 +1754,8 @@ def anneal(
                     permute_chains(state, perm)
                 if tap is not None:
                     telemetry.record(
-                        tap, telemetry.lex_best_row(state.cost_vec),
-                        state.n_prop_kind.sum(0), state.n_acc_kind.sum(0),
+                        tap, telemetry.lex_best_row(chains("cost_vec")),
+                        chains("n_prop_kind").sum(0), chains("n_acc_kind").sum(0),
                         opts.t0 * decay**t_last, ex_att, ex_acc,
                     )
                 return carry, None
@@ -1764,9 +1766,9 @@ def anneal(
                     row=lambda _: telemetry.current_row(tap, G), window=int(opts.plateau_window)
                 )
             # heartbeat energy: the best chain's top-tier cost
-            probe = (lambda _: state.cost_vec[:, 0].min()) if tap is not None else None
-            run_one = costmodel.instrument("sa-chunk", iters=chunk, sig=sig,
-                                           device=m.device)(run_one)
+            probe = (lambda _: chains("cost_vec")[:, 0].min()) if tap is not None else None
+            run_one = costmodel.instrument(prefix + "sa-chunk", iters=chunk, sig=sig,
+                                           device=dev)(run_one)
             drive_chunks(run_one, None, total=n, chunk=chunk, probe=probe, plateau=plateau)
             ladder = None
             if n_temps > 1:
@@ -1784,16 +1786,22 @@ def anneal(
     # counted on the host: no device read
     TRACER.set_attrs(engine=engine)
     TRACER.add_counts(subSteps=n_run * (moves if engine == "sequential" else 1))
+    cost_vecs = []
+    for g in groups:
+        with TRACER.blocked():
+            cost_vecs.append(g.state.cost_vec.cpu().numpy())
+    best = best_chain_index(np.concatenate(cost_vecs))
+    owner = next(g for g in groups if g.lo <= best < g.hi)
+    i = best - owner.lo
+    assignment, leader_slot, replica_disk = owner.placement(best, m.device)
+    result_model = m.replace(assignment=assignment, leader_slot=leader_slot,
+                             replica_disk=replica_disk)
     with TRACER.blocked():
-        cost_vecs = state.cost_vec.cpu().numpy()
-    best = best_chain_index(cost_vecs)
-    result_model = with_placement(m, state, best)
+        n_accepted = int(owner.state.n_accepted[i])
     with TRACER.blocked():
-        n_accepted = int(state.n_accepted[best])
+        n_prop_kind = tuple(owner.state.n_prop_kind[i].tolist())
     with TRACER.blocked():
-        n_prop_kind = tuple(state.n_prop_kind[best].tolist())
-    with TRACER.blocked():
-        n_acc_kind = tuple(state.n_acc_kind[best].tolist())
+        n_acc_kind = tuple(owner.state.n_acc_kind[i].tolist())
     return AnnealResult(
         model=result_model,
         stack_before=stack_before,
@@ -1808,3 +1816,70 @@ def anneal(
         convergence=convergence,
         plateau=plateau_info,
     )
+
+
+def anneal(
+    m: TensorClusterModel,
+    cfg: GoalConfig = GoalConfig(),
+    goal_names: tuple[str, ...] = DEFAULT_GOAL_ORDER,
+    opts: AnnealOptions = AnnealOptions(),
+    evac: tuple[torch.Tensor, int | torch.Tensor] | None = None,
+    mesh=None,
+) -> AnnealResult:
+    """Run SA on ``opts.n_chains`` chains and return the best chain's
+    placement as a new model.
+
+    Chains never accept hard-cost-increasing moves and the temperature ends
+    near zero; the winner is the lexicographic argmin of the cost vectors.
+    The returned stack scores are re-evaluated from scratch. ``evac`` is an
+    optional precomputed hot list (``hot_partition_list`` or
+    ``hot_partition_list_device``; a tensor count is read once here).
+
+    ``chunk_steps > 0`` runs the steps in chunks (module docstring); the
+    ladder rounds ``n_chains`` up to a multiple of ``n_temps``.
+
+    With ``mesh`` (``ccx_torch.parallel.sharding.Mesh``) a ``parts`` axis
+    greater than 1 that divides the padded P hands the whole run to the
+    partition-axis-sharded engine (``sharding.sharded_anneal``, whose chain
+    ranks are chain groups of this module's one driver, ``_run_groups``).
+    Otherwise the chains ride the mesh as data parallelism: ``n_chains`` is
+    rounded up to a multiple of the mesh's size (logged) and the chains run
+    on the model's device, which on the virtual mesh is every logical
+    device's physical one.
+
+    The innermost open span gets the attribute ``engine`` (``step_engine``)
+    and the counters ``subSteps``: the proposal applications the run made,
+    steps x ``moves_per_step`` on the sequential engine and steps on the
+    others, and ``graphCaptures``, ``graphReplays``, ``graphCaptureSeconds``
+    (module docstring; 0 off a card and on the sharded engine, and on a
+    card a one-card run of n >= 2 steps counts 1 capture and n - 1
+    replays)."""
+    if mesh is not None:
+        parts = mesh.shape.get("parts", 1)
+        if parts > 1:
+            if m.P % parts == 0:
+                from ccx_torch.parallel.sharding import sharded_anneal
+
+                return sharded_anneal(m, cfg, goal_names, opts, mesh, evac=evac)
+            logging.getLogger(__name__).warning(
+                "anneal: padded P=%d not divisible by mesh parts=%d; running chains-only data "
+                "parallelism over the %d devices", m.P, parts, mesh.size,
+            )
+    chunked = opts.chunk_steps > 0
+    n_temps = max(int(opts.n_temps), 1) if chunked else 1
+    if opts.n_temps > 1 and not chunked:
+        logging.getLogger(__name__).warning(
+            "anneal: n_temps=%d needs chunk_steps > 0 (exchange runs at chunk boundaries); "
+            "the one-loop run stays flat", opts.n_temps,
+        )
+    if mesh is not None or n_temps > 1:
+        C = round_up_chains(opts.n_chains, mesh.size if mesh is not None else 1, "anneal",
+                            n_temps=n_temps)
+        opts = dataclasses.replace(opts, n_chains=C)
+
+    def one_group(group, evac_idx, pp, engine, moves) -> list[ChainGroup]:
+        state = _chain_init(m, cfg, goal_names, group=group, n_chains=opts.n_chains)
+        kw = step_kwargs(m, cfg, goal_names, pp, engine, moves, group)
+        return [ChainGroup(state, 0, opts.n_chains, evac_idx, kw)]
+
+    return _run_groups(m, cfg, goal_names, opts, evac, one_group)

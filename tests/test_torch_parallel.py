@@ -35,6 +35,7 @@ from ccx.model.fixtures import RandomClusterSpec, random_cluster as jax_random_c
 from ccx.parallel import sharding as jsh
 from ccx.search.annealer import AnnealOptions as JaxAnnealOptions
 from ccx_torch.common import vmesh
+from ccx_torch.common.tracing import TRACER
 from ccx_torch.goals.base import GOAL_REGISTRY, GoalConfig
 from ccx_torch.goals.stack import DEFAULT_GOAL_ORDER, INTRA_BROKER_GOAL_ORDER, evaluate_stack
 from ccx_torch.model.tensor_model import TENSOR_FIELDS, model_from_arrays
@@ -179,6 +180,42 @@ def test_sharded_anneal_equals_the_unsharded_anneal(small, wide, engine, mesh8):
     torch.testing.assert_close(rs.stack_after.costs, ru.stack_after.costs, rtol=RTOL, atol=ATOL)
     # anneal(mesh=) with a parts axis hands the run to the sharded engine
     _same_placement(anneal(tm, GoalConfig(), DEFAULT_GOAL_ORDER, opts, mesh=mesh), rs)
+
+
+def _span_reading(run) -> tuple:
+    """(the ``engine`` attributes, the ``subSteps`` and the ``sa-step``
+    entries) a run leaves in the tree of the span it runs under."""
+    with TRACER.span("run") as s:
+        run()
+    engines, sub_steps, steps = [], 0, 0
+    todo = [s.to_json()]
+    while todo:
+        node = todo.pop()
+        attrs = node.get("attrs", {})
+        if "engine" in attrs:
+            engines.append(attrs["engine"])
+        sub_steps += attrs.get("subSteps", 0)
+        if node["name"] == "sa-step":
+            steps += node["calls"]
+        todo.extend(node.get("children", []))
+    return engines, sub_steps, steps
+
+
+@pytest.mark.parametrize("engine", ["sequential", "batched", "single"])
+def test_sharded_and_unsharded_runs_report_the_same_spans(small, wide, engine, mesh8):
+    """One SA driver: on the same seed a sharded run sets the span's
+    ``engine`` and ``subSteps`` and opens as many ``sa-step`` entries as
+    the unsharded run."""
+    _, tm = wide if engine == "batched" else small
+    moves = 4 if engine == "batched" else 2
+    opts = AnnealOptions(n_chains=4, n_steps=12, seed=3, chunk_steps=5, moves_per_step=moves,
+                         p_swap=0.0 if engine == "single" else 0.15)
+    mesh = sharding.make_mesh(parts=4)
+    got = _span_reading(
+        lambda: sharding.sharded_anneal(tm, GoalConfig(), DEFAULT_GOAL_ORDER, opts, mesh))
+    ref = _span_reading(lambda: anneal(tm, GoalConfig(), DEFAULT_GOAL_ORDER, opts))
+    assert ref == ([engine], 12 * (moves if engine == "sequential" else 1), 12)
+    assert got == ref
 
 
 def test_sharded_chunked_equals_the_one_shot_run(small, mesh8):

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import ast
 import re
+import threading
 from pathlib import Path
 
 import pytest
@@ -89,6 +90,55 @@ def test_import_scan_sees_forbidden_imports(tmp_path):
     src = tmp_path / "m.py"
     src.write_text("import jax.numpy as jnp\nfrom ccx.goals import base\nimport ccx_torch\n")
     assert _imported_roots(src) & set(FORBIDDEN) == {"jax", "ccx"}
+
+
+#: a device-wide synchronize outside ``ccx_torch/device.py`` would skip the
+#: capture lock that ``device.synchronize`` takes
+RAW_SYNC = re.compile(r"torch\.cuda\.synchronize\(")
+
+
+def _raw_syncs(path: Path) -> list[str]:
+    return [ln.strip() for ln in path.read_text().splitlines() if RAW_SYNC.search(ln)]
+
+
+@pytest.mark.parametrize(
+    "path", [p for p in sorted((ROOT / "ccx_torch").rglob("*.py"))
+             if p != ROOT / "ccx_torch" / "device.py"],
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_synchronizes_only_through_device_synchronize(path):
+    hits = _raw_syncs(path)
+    assert not hits, f"{path.relative_to(ROOT)} calls torch.cuda.synchronize: {hits[:3]}"
+
+
+def test_sync_scan_sees_a_raw_synchronize(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text("import torch\ntorch.cuda.synchronize(dev)\nsynchronize(dev)\n")
+    assert _raw_syncs(src) == ["torch.cuda.synchronize(dev)"]
+    assert _raw_syncs(ROOT / "ccx_torch" / "device.py")
+
+
+def test_device_synchronize_returns_at_once_off_cuda(monkeypatch):
+    """A CPU device has nothing to drain: no CUDA call, and no wait on a
+    graph capture under way (the capture lock held here)."""
+
+    def touched(*args, **kwargs):
+        raise AssertionError("CUDA touched")
+
+    monkeypatch.setattr(torch.cuda, "synchronize", touched)
+    errors = []
+
+    def run():
+        try:
+            device_mod.synchronize(torch.device("cpu"))
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    with device_mod.CAPTURE_LOCK:
+        t = threading.Thread(target=run)
+        t.start()
+        t.join(30)
+        assert not t.is_alive(), "device.synchronize waited on the capture lock"
+    assert not errors, errors
 
 
 def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
